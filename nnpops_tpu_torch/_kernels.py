@@ -1,0 +1,136 @@
+"""Build, load and count the package's CUDA kernels.
+
+The kernels live in ``csrc/*.cu`` as plain ``extern "C"`` entry points. On
+the first CUDA call, :func:`library` compiles them with ``nvcc`` for
+``sm_90a`` into one shared library under ``_build/`` (named by a hash of the
+sources and flags, so an edited source rebuilds) and loads it with
+``ctypes``. Importing this module builds nothing and needs no ``nvcc``.
+
+Every entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code. :data:`LAUNCHES` counts kernel
+launches by name: a wrapper adds one exactly where it launches its kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).parent / 'csrc'
+BUILD_DIR = Path(__file__).parent / '_build'
+SOURCES = ('angular_aev.cu', 'fused_nn.cu')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+
+LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0,
+            'fused_nn_fwd': 0, 'fused_nn_fwdgrad': 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
+_SIGNATURES = {
+    # planes, mask, lane_pos, jj, kk, seg_bounds, out, n_rows, width, kat,
+    # n_seg, n_rs, n_ts, rs, cos_ts, sin_ts (host arrays), ra, eta, zeta,
+    # torchani, stream
+    'angular_aev_fwd': (_P,) * 7 + (_I,) * 6 + (_P,) * 3
+                       + (_D, _D, _D, _I, _P),
+    # planes, mask, lane_pos, col_lane, jj, kk, seg_bounds, g, out, then as
+    # the forward from n_rows on
+    'angular_aev_bwd': (_P,) * 9 + (_I,) * 6 + (_P,) * 3
+                       + (_D, _D, _D, _I, _P),
+    # x, wbuf, fbuf, e_out, dx_out, n, in_actual, n_layers, dims, models,
+    # stream
+    'fused_nn_fwd': (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
+    'fused_nn_fwdgrad': (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
+}
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = Path('/usr/local/cuda/bin/nvcc')
+    if default.exists():
+        return str(default)
+    raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA '
+                       'toolkit (nvcc on PATH or under /usr/local/cuda)')
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f'libnnpops_kernels_{digest.hexdigest()[:16]}.so'
+
+
+def build() -> Path:
+    """Compile ``csrc/`` into ``_build/`` unless the hashed library exists."""
+    target = library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+           *(str(CSRC / name) for name in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, target)       # atomic: a concurrent loader sees all or nothing
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.nnpops_error_string.argtypes = [ctypes.c_int]
+        lib.nnpops_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry ``name``, count the launch, raise on a CUDA error."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.nnpops_error_string(err).decode()
+        raise RuntimeError(f'{name}: CUDA error {err} ({msg})')
+    LAUNCHES[name] += 1
+
+
+def stream_handle(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(*tensors) -> None:
+    """Raise unless every tensor is a contiguous tensor on the current CUDA
+    device (the kernels take raw pointers on the current stream)."""
+    import torch
+    dev = torch.cuda.current_device()
+    for t in tensors:
+        if t.device.type != 'cuda' or t.device.index != dev:
+            raise ValueError(f'expected a tensor on cuda:{dev}, got {t.device}')
+        if not t.is_contiguous():
+            raise ValueError('expected a contiguous tensor')

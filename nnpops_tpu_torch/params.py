@@ -1,0 +1,55 @@
+"""Parameters from elsewhere: JAX parameter trees and TorchANI npz files.
+
+``from_jax_params`` takes the JAX package's ``ANIParams`` tree after a
+``jax.tree.map(np.asarray, ...)`` (or the same structure as plain nested
+tuples: ``(ensemble, self_energies)`` with ``ensemble = (networks,)`` and
+``networks[s] = (weights, biases)``); it needs no JAX itself.
+
+``from_npz`` reads the npz layout written by
+``nnpops_tpu.utils.torchani_io.save_ensemble_npz``. It reads the file with
+numpy directly: that module's ``load_ensemble_npz`` builds JAX arrays, and
+this package runs where JAX is not installed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.ani import ANIParams
+from .ops.batched_nn import EnsembleParams, SpeciesNet
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def from_jax_params(tree, device=None) -> ANIParams:
+    """JAX ``ANIParams`` (numpy leaves) -> the port's ``ANIParams``."""
+    ensemble, self_energies = tree
+    (networks,) = ensemble
+    nets = tuple(SpeciesNet(tuple(_tensor(w, device) for w in weights),
+                            tuple(_tensor(b, device) for b in biases))
+                 for weights, biases in networks)
+    return ANIParams(EnsembleParams(nets), _tensor(self_energies, device))
+
+
+def from_npz(path: str, device=None) -> ANIParams:
+    """Load an ensemble saved in the TorchANI npz layout
+    (``w_s{S}_m{M}_l{L}`` [out, in], ``b_s{S}_m{M}_l{L}`` [out],
+    ``self_energies``). A file without self energies gets zeros."""
+    with np.load(path) as data:
+        ns = int(data['num_species'])
+        nm = int(data['num_models'])
+        nl = int(data['num_layers'])
+        nets = []
+        for s in range(ns):
+            ws = tuple(_tensor(np.stack([data[f'w_s{s}_m{m}_l{l}']
+                                         for m in range(nm)]), device)
+                       for l in range(nl))
+            bs = tuple(_tensor(np.stack([data[f'b_s{s}_m{m}_l{l}']
+                                         for m in range(nm)]), device)
+                       for l in range(nl))
+            nets.append(SpeciesNet(ws, bs))
+        sae = (data['self_energies'] if 'self_energies' in data
+               else np.zeros(ns, np.float32))
+        return ANIParams(EnsembleParams(tuple(nets)), _tensor(sae, device))
