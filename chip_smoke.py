@@ -1,31 +1,47 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's ANI-2x MD force step (``nnpops_tpu_torch``, the 'pallas'
-configuration: species-blocked selection, angular CUDA kernel, fused-NN CUDA
-kernel, bf16 ensemble) on a 2,601-atom periodic water box at full ANI-2x
-width with 8 random models made from a seed:
+Drives the port's ANI-2x MD force step (``nnpops_tpu_torch``, bf16 fused
+ensemble, 8 random models made from a seed, full ANI-2x width, skin
+0.25 A, refresh 8, margin 1.15) on periodic water boxes:
 
 1. requires CUDA and prints the card's name and power limit;
 2. builds the kernels from ``nnpops_tpu_torch/csrc`` (nvcc, sm_90a);
-3. holds every kernel against its plain PyTorch version on the card at the
-   main path's shapes, and times both with CUDA events;
-4. runs the main path: 2 selection blocks x 8 force steps with the force
-   nudge ``pos += 1e-6 * f``, ``check_overflow`` after each block, then the
-   final frame's energy without gradients; asserts finite output, the
-   kernels' launch counts, and E/F against the same step through the plain
-   versions;
-5. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
-   the last line.
+3. the 'pallas' configuration at 2,601 atoms (species-blocked selection,
+   angular kernel, fused-NN kernel): the angular and fused-NN kernels
+   against their plain PyTorch versions at its shapes, then 2 selection
+   blocks x 8 force steps with the force nudge ``pos += 1e-6 * f``,
+   ``check_overflow`` after each block, and the launch counts;
+4. the window configuration at 2,601 atoms, the main path: every kernel
+   it launches (left-pack, window radial forward and backward, angular
+   forward and backward per row tier, fused NN forward and fwdgrad) against
+   its plain version at the shapes the path gives it, recorded from one
+   selection and one step, plus the window radial kernel with forced
+   cell-occupancy bucketing; each kernel timed on the device (20 calls
+   captured in a CUDA graph, replayed between CUDA events) beside its plain
+   version (CUDA events around 20 eager calls) and its bound;
+5. the window main path: 2 selection blocks x 8 force steps as in 3, the
+   final frame's energy without gradients, the launch counts (every step
+   launches the window radial forward and backward and the angular kernel
+   once per tier, every selection the left-pack), and one step against the
+   same step through the plain versions;
+6. one selection and 4 steps of the window path at 26,010 atoms, where the
+   planner turns on bucketing and four angular tiers: finite output, no
+   overflow, ms/step;
+7. prints the kernels' JSON line, the card line again, then
+   ``{"ok": true, "device": ...}`` as the last line.
 
 Any failure raises (non-zero exit). Run from the repository root:
 
     python3 chip_smoke.py
 """
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -33,23 +49,62 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from nnpops_tpu_torch import ANIBasis, _kernels  # noqa: E402
+from nnpops_tpu_torch.models import ani as ani_mod  # noqa: E402
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,  # noqa: E402
                                          plain_energy_and_forces)
+from nnpops_tpu_torch.neighbors import window as window_mod  # noqa: E402
 from nnpops_tpu_torch.neighbors.blocked import payload_from_blocked  # noqa: E402
+from nnpops_tpu_torch.ops import (cuda_aev, cuda_nn, cuda_select,  # noqa: E402
+                                  cuda_window)
 from nnpops_tpu_torch.ops.aev_blocked import compute_aev_blocked  # noqa: E402
-from nnpops_tpu_torch.ops import cuda_aev, cuda_nn  # noqa: E402
 from nnpops_tpu_torch.utils import make_water_box  # noqa: E402
 
 MOLECULES = 867          # 2,601 atoms, box 29.6 A
+LARGE_MOLECULES = 8670   # 26,010 atoms, box 63.8 A
 SKIN = 0.25
+MARGIN = 1.15
 REFRESH = 8
 BLOCKS = 2
+LARGE_STEPS = 4
 SEED = 0
 DEV = torch.device('cuda', 0)
 
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 operations/s
+# outside the tensor cores, bf16 tensor-core operations/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# Operations per unit of work, counted from the CUDA sources (an FMA counts
+# two, a sqrt, exp or log one): angular_aev.cu per triple whose two lanes
+# are inside the cutoff; window_radial.cu per (real center, window lane)
+# pair tested and per pair inside the cutoff, R = 16 Gaussians.
+ANG_FWD_OPS = 175
+ANG_BWD_OPS = 420
+RAD_TEST_OPS = 10
+RAD_FWD_OPS = 135
+RAD_BWD_OPS = 205
+
+REPLACES = {
+    'angular_aev_fwd': 'nnpops_tpu/ops/pallas_aev.py:614',
+    'angular_aev_bwd': 'nnpops_tpu/ops/pallas_aev.py:626',
+    'fused_nn_fwd': 'nnpops_tpu/ops/pallas_nn.py:183',
+    'fused_nn_fwdgrad': 'nnpops_tpu/ops/pallas_nn.py:194',
+    'left_pack': 'nnpops_tpu/ops/pallas_select.py:139',
+    'window_radial_fwd': 'nnpops_tpu/ops/pallas_window.py:361',
+    'window_radial_bwd': 'nnpops_tpu/ops/pallas_window.py:378',
+}
+SOURCES = {
+    'angular_aev': 'nnpops_tpu_torch/csrc/angular_aev.cu',
+    'fused_nn': 'nnpops_tpu_torch/csrc/fused_nn.cu',
+    'left_pack': 'nnpops_tpu_torch/csrc/left_pack.cu',
+    'window_radial': 'nnpops_tpu_torch/csrc/window_radial.cu',
+}
+
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms from CUDA events."""
+    """Mean time of ``fn`` in ms from CUDA events around ``iters`` eager
+    calls: for a call of many small kernels (the plain versions) the host's
+    launch rate is part of it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -63,8 +118,35 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20, replays=5):
+    """Mean device time of one call of a kernel's wrapper ``fn`` in ms:
+    ``iters`` calls captured in one CUDA graph (the wrappers launch on the
+    current stream, which the capture redirects), replayed ``replays`` times
+    between CUDA events, so the host's launch rate stays out of the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def max_abs(a, b):
-    return float((a - b).abs().max())
+    return float((a - b).detach().abs().max())
 
 
 def check_close(name, got, want, rtol, atol):
@@ -75,9 +157,433 @@ def check_close(name, got, want, rtol, atol):
 
 def check_normwise(name, got, want, rtol):
     """max |got - want| <= rtol * max |want|."""
-    err, scale = max_abs(got, want), float(want.abs().max())
+    err, scale = max_abs(got, want), float(want.detach().abs().max())
     if not err <= rtol * scale:
         raise AssertionError(f'{name}: max|diff| {err} > {rtol} * {scale}')
+
+
+def entry(name, source, err, kernel_fn, plain_fn, nbytes, ops, ops_per_s):
+    """One kernel's JSON entry: ``ms`` the kernel's device time
+    (:func:`graph_ms`), ``event_ms`` the same calls launched eagerly (not in
+    the JSON line), ``plain_ms`` the plain version's; the bound is the
+    larger of the bytes over the memory rate and the operations over the
+    peak for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return dict(name=name, route='cuda', source=SOURCES[source],
+                replaces=REPLACES[name], max_abs_err=err,
+                ms=graph_ms(kernel_fn), event_ms=cuda_ms(kernel_fn),
+                plain_ms=cuda_ms(plain_fn), bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                library_ms=None)
+
+
+def merge(entries):
+    """Sum entries of one kernel over several launches (tiers, species)."""
+    out = dict(entries[0])
+    for key in ('ms', 'event_ms', 'plain_ms', 'bound_ms'):
+        out[key] = sum(e[key] for e in entries)
+    out['max_abs_err'] = max(e['max_abs_err'] for e in entries)
+    return out
+
+
+@contextlib.contextmanager
+def recording(module, name, calls):
+    """Wrap ``module.name`` so that every call's arguments are appended to
+    ``calls``; the wrapped function still runs."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def build(molecules, impl, basis):
+    water = make_water_box(molecules, seed=SEED)
+    model = ANIModel.from_atomic_numbers(
+        water.atomic_numbers, basis, nn_dtype='bfloat16',
+        nn_impl='fused').with_blocked_layout(
+            water.positions, water.box, margin=MARGIN, impl=impl, skin=SKIN)
+    if model.aev_impl != impl:
+        raise AssertionError(f'{impl} layout fell back to {model.aev_impl}')
+    box = torch.tensor(water.box, device=DEV)
+    pos = torch.tensor(water.positions, device=DEV)
+    return water, model, model.create_cell_list(water.box, skin=SKIN), pos, box
+
+
+# ---------------------------------------------------------------------------
+# Kernel checks: each kernel against its plain version on the same inputs.
+# ---------------------------------------------------------------------------
+
+def angular_entries(deltas, mask, basis, layout, width):
+    """(fwd, bwd) entries of the angular kernel on one input."""
+    spec = cuda_aev._spec(basis, layout, width, DEV)
+    raw_k = cuda_aev.angular_fwd_cuda(deltas, mask, spec)
+    raw_p = cuda_aev.angular_aev_plain(deltas, mask, basis, layout, width)
+    a_k = cuda_aev.place_angular(raw_k, basis, layout)
+    a_p = cuda_aev.place_angular(raw_p, basis, layout)
+    check_close('angular fwd', a_k, a_p, rtol=3e-5, atol=3e-6)
+    # Gradient of sum(a^2), the JAX suite's angular gradient check.
+    d_k = deltas.clone().requires_grad_(True)
+    (g_k,) = torch.autograd.grad(
+        cuda_aev.angular_aev(d_k, mask, basis, layout, width).square().sum(),
+        d_k)
+    d_p = deltas.clone().requires_grad_(True)
+    raw_pg = cuda_aev.angular_aev_plain(d_p, mask, basis, layout, width)
+    (g_p,) = torch.autograd.grad(
+        cuda_aev.place_angular(raw_pg, basis, layout).square().sum(), d_p,
+        retain_graph=True)
+    check_close('angular bwd', g_k, g_p, rtol=2e-4, atol=2e-5)
+    # Both backward times take the same cotangent of the kernel's raw
+    # [N, n_seg * 32] output, so they time the same work.
+    raw_req = raw_k.detach().requires_grad_(True)
+    (raw_cot,) = torch.autograd.grad(
+        cuda_aev.place_angular(raw_req, basis, layout).square().sum(), raw_req)
+    raw_cot = raw_cot.contiguous()
+    # Work: the triples whose two lanes are inside the cutoff.
+    d = deltas[:, :, spec.lane_pos.long()]
+    inside = mask & (d.square().sum(0).sqrt() < basis.angular_cutoff)
+    triples = int((inside[:, spec.jj.long()] & inside[:, spec.kk.long()]).sum())
+    io = deltas.numel() * 4 + mask.numel()
+    fwd = entry('angular_aev_fwd', 'angular_aev', max_abs(a_k, a_p),
+                lambda: cuda_aev.angular_fwd_cuda(deltas, mask, spec),
+                lambda: cuda_aev.angular_aev_plain(deltas, mask, basis,
+                                                   layout, width),
+                io + raw_k.numel() * 4, triples * ANG_FWD_OPS, F32_OPS_PER_S)
+    bwd = entry('angular_aev_bwd', 'angular_aev', max_abs(g_k, g_p),
+                lambda: cuda_aev.angular_bwd_cuda(deltas, mask, raw_cot, spec),
+                lambda: torch.autograd.grad(raw_pg, d_p, raw_cot,
+                                            retain_graph=True),
+                io + raw_cot.numel() * 4 + deltas.numel() * 4,
+                triples * ANG_BWD_OPS, F32_OPS_PER_S)
+    print(f'angular rows {deltas.shape[1]} lanes {spec.kat} triples '
+          f'{len(spec.jj)} (inside the cutoff {triples}): fwd {fwd["ms"]:.4f} '
+          f'ms, bwd {bwd["ms"]:.4f} ms')
+    return fwd, bwd
+
+
+def nn_entries(params, feat, counts):
+    """(fwd, fwdgrad) entries of the fused-NN kernel over the species row
+    blocks of species-grouped AEV rows."""
+    fwds, grads = [], []
+    start = 0
+    for s, count in enumerate(counts):
+        if not count:
+            continue
+        net = params.ensemble.networks[s]
+        x = feat[start:start + count].contiguous()
+        start += count
+        packed = cuda_nn.pack_species_net(net)
+        e_k, _ = cuda_nn.launch_packed(x, packed, False)
+        e_p, _ = cuda_nn.fused_species_net_plain(x, net)
+        # Normwise: a bf16 operand can round the other way when the f32
+        # accumulation order differs, which moves a near-zero atom's energy
+        # by far more than 1e-3 of itself but not of the block's scale.
+        check_normwise('fused nn fwd', e_k, e_p, rtol=1e-3)
+        e_kg, dx_k = cuda_nn.launch_packed(x, packed, True)
+        e_pg, dx_p = cuda_nn.fused_species_net_plain(x, net, with_grad=True)
+        check_normwise('fused nn fwdgrad e', e_kg, e_pg, rtol=1e-3)
+        check_normwise('fused nn fwdgrad dx', dx_k, dx_p, rtol=1e-2)
+        macs = net.weights[0].shape[0] * sum(w.shape[1] * w.shape[2]
+                                             for w in net.weights)
+        w_bytes = 2 * macs + 4 * sum(b.numel() for b in net.biases)
+        flops = 2 * count * macs
+        fwds.append(entry(
+            'fused_nn_fwd', 'fused_nn', max_abs(e_k, e_p),
+            lambda: cuda_nn.launch_packed(x, packed, False),
+            lambda: cuda_nn.fused_species_net_plain(x, net),
+            x.numel() * 4 + w_bytes + count * 4, flops, BF16_OPS_PER_S))
+        grads.append(entry(
+            'fused_nn_fwdgrad', 'fused_nn',
+            max(max_abs(e_kg, e_pg), max_abs(dx_k, dx_p)),
+            lambda: cuda_nn.launch_packed(x, packed, True),
+            lambda: cuda_nn.fused_species_net_plain(x, net, True),
+            2 * x.numel() * 4 + w_bytes + count * 4, 2 * flops,
+            BF16_OPS_PER_S))
+        print(f'fused nn rows {count} dims {packed.dims}: max|de| '
+              f'{max_abs(e_kg, e_pg):.3g} (max|e| {float(e_pg.abs().max()):.3g})'
+              f' max|ddx| {max_abs(dx_k, dx_p):.3g} (max|dx| '
+              f'{float(dx_p.abs().max()):.3g})')
+    return merge(fwds), merge(grads)
+
+
+def left_pack_entry(keys, widths, caps):
+    packed, counts = cuda_select.left_pack_cuda(keys, widths, caps)
+    p_packed, p_counts = cuda_select.left_pack_plain(keys, widths, caps)
+    if not (torch.equal(packed, p_packed) and torch.equal(counts, p_counts)):
+        raise AssertionError('left_pack: kernel and plain version differ')
+    e = entry('left_pack', 'left_pack', 0.0,
+              lambda: cuda_select.left_pack_cuda(keys, widths, caps),
+              lambda: cuda_select.left_pack_plain(keys, widths, caps),
+              4 * (keys.numel() + packed.numel() + counts.numel()),
+              3 * keys.numel(), F32_OPS_PER_S)
+    print(f'left_pack keys {tuple(keys.shape)} widths {tuple(widths)} caps '
+          f'{tuple(caps)}: {e["ms"]:.4f} ms, plain {e["plain_ms"]:.4f} ms')
+    return e
+
+
+def radial_entries(args, kwargs):
+    """(fwd, bwd) entries of the window radial kernel on one recorded call
+    of ``window_radial(candx, candy, candz, centers, rc, eta, rs, cell_caps,
+    torchani, center_caps=...)``."""
+    cx, cy, cz, ctr = (t.detach().contiguous() for t in args[:4])
+    rc, eta, rs, caps, torchani = args[4:9]
+    center_caps = kwargs.get('center_caps')
+    spec = cuda_window._spec(
+        tuple(int(x) for x in caps),
+        None if center_caps is None else tuple(int(x) for x in center_caps),
+        float(rc), tuple(float(x) for x in eta), tuple(float(x) for x in rs),
+        bool(torchani))
+    out_k = cuda_window.window_radial_fwd_cuda(cx, cy, cz, ctr, spec)
+    ins = [t.clone().requires_grad_(True) for t in (cx, cy, cz, ctr)]
+    out_p = cuda_window.window_radial_plain(*ins, *args[4:9],
+                                            center_caps=center_caps)
+    check_normwise('window radial fwd', out_k, out_p, rtol=1e-5)
+    g = (2.0 * out_p).detach().contiguous()       # cotangent of sum(out^2)
+    grads_k = cuda_window.window_radial_bwd_cuda(cx, cy, cz, ctr, g, spec)
+    grads_p = torch.autograd.grad(out_p, ins, g, retain_graph=True)
+    for name, a, b in zip(('dcandx', 'dcandy', 'dcandz', 'dcenters'),
+                          grads_k, grads_p):
+        check_normwise(f'window radial bwd {name}', a, b, rtol=1e-4)
+    # Work: the pairs of real centers with window lanes, and those inside
+    # the cutoff (the self lane excluded).
+    geo = spec.geo
+    real = ctr[:, :, 0] < cuda_window.EMPTY_ROW
+    d2 = sum((c[:, None, :] - ctr[:, :, i:i + 1]).square()
+             for i, c in enumerate((cx, cy, cz)))
+    lane = torch.arange(geo.kk, device=DEV)
+    self_lane = torch.as_tensor(geo.self_lane, device=DEV)
+    inside = int(((d2 < float(rc) ** 2) & (lane != self_lane[:, None])
+                  & real[:, :, None]).sum())
+    tested = int(real.sum()) * geo.kk
+    io = 4 * (3 * cx.numel() + ctr.numel())
+    fwd = entry('window_radial_fwd', 'window_radial', max_abs(out_k, out_p),
+                lambda: cuda_window.window_radial_fwd_cuda(cx, cy, cz, ctr,
+                                                           spec),
+                lambda: cuda_window.window_radial_plain(
+                    cx, cy, cz, ctr, *args[4:9], center_caps=center_caps),
+                io + 4 * out_k.numel(),
+                tested * RAD_TEST_OPS + inside * RAD_FWD_OPS, F32_OPS_PER_S)
+    bwd = entry('window_radial_bwd', 'window_radial',
+                max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
+                lambda: cuda_window.window_radial_bwd_cuda(cx, cy, cz, ctr, g,
+                                                           spec),
+                lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True),
+                2 * io + 4 * g.numel(),
+                tested * RAD_TEST_OPS + inside * RAD_BWD_OPS, F32_OPS_PER_S)
+    print(f'window radial cells {cx.shape[0]} center rows {ctr.shape[1]} '
+          f'lanes {geo.kk} (pairs tested {tested}, inside {inside}): fwd '
+          f'{fwd["ms"]:.4f} ms (plain {fwd["plain_ms"]:.4f}), bwd '
+          f'{bwd["ms"]:.4f} ms (plain {bwd["plain_ms"]:.4f})')
+    return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
+# Driving a path.
+# ---------------------------------------------------------------------------
+
+def force_blocks(model, params, pos, box, cell_list, blocks, steps):
+    """``blocks`` selections of ``steps`` nudged force steps each, with
+    ``check_overflow`` after each block; (pos, sel, f, energies)."""
+    p = pos
+    for _ in range(blocks):
+        sel = model.select(p, box, cell_list)
+        energies = []
+        for _ in range(steps):
+            e, f = model.energy_and_forces_from_selection(params, p, box,
+                                                          cell_list, sel)
+            energies.append(e)
+            p = p + 1e-6 * f
+        model.check_overflow(p, box, cell_list, sel)
+    return p, sel, f, torch.stack(energies)
+
+
+def drive(label, model, params, pos, box, cell_list):
+    """The path's main run: counts set to 0 just before, read just after.
+    Returns (launches, pos, sel)."""
+    force_blocks(model, params, pos, box, cell_list, 1, REFRESH)   # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p, sel, f, energies = force_blocks(model, params, pos, box, cell_list,
+                                       BLOCKS, REFRESH)
+    end.record()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        e_final = model.energy_from_selection(params, p, box, cell_list, sel)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    print(f'{label} main path: {BLOCKS * REFRESH} steps, '
+          f'{start.elapsed_time(end) / (BLOCKS * REFRESH):.3f} ms/step (CUDA '
+          f'events, selection included), launches {launches}')
+    if not (torch.isfinite(energies).all() and torch.isfinite(f).all()
+            and torch.isfinite(e_final)):
+        raise AssertionError(f'{label}: non-finite energy or forces')
+    if tuple(f.shape) != (model.num_atoms, 3):
+        raise AssertionError(f'{label}: forces shape {tuple(f.shape)}')
+    return launches, p, sel
+
+
+def require_launches(label, launches, need):
+    for name, n in need.items():
+        if launches[name] < n:
+            raise AssertionError(f'{label}: {name} launched {launches[name]}'
+                                 f' times, expected at least {n}')
+
+
+def step_vs_plain(label, model, params, p, box, cell_list, sel):
+    """One step through the kernels against the same step through the
+    plain versions, on the card."""
+    e_k, f_k = model.energy_and_forces_from_selection(params, p, box,
+                                                      cell_list, sel)
+    e_p, f_p = plain_energy_and_forces(model, params, p, box, cell_list, sel)
+    check_close(f'{label} step energy', e_k, e_p, rtol=1e-3, atol=0.0)
+    check_normwise(f'{label} step forces', f_k, f_p, rtol=5e-3)
+    print(f'{label} step vs plain: E {float(e_k):.6f} vs {float(e_p):.6f}, '
+          f'max|dF| {max_abs(f_k, f_p):.3g} (max|F| '
+          f'{float(f_p.abs().max()):.3g})')
+
+
+def pallas_phase(basis, params):
+    """Phase 3: the 'pallas' configuration (the first slice's path)."""
+    water, model, cell_list, pos, box = build(MOLECULES, 'pallas', basis)
+    layout = model.blocked_layout
+    print(f'pallas: atoms {model.num_atoms}, rad_caps {layout.rad_caps} '
+          f'ang_caps {layout.ang_caps}, cells {cell_list.ncells} x '
+          f'{cell_list.cell_capacity}')
+    sel = model.select(pos, box, cell_list)
+    order, _ = model._device_arrays(DEV)
+    payload = payload_from_blocked(cell_list, pos, box, sel, rad_only=True,
+                                   layout=layout,
+                                   row_order=sel.inv_order[order])
+    deltas = payload.rad_deltas.detach().contiguous()
+    angular_entries(deltas, payload.ang_mask.contiguous(), basis, layout,
+                    deltas.shape[2])
+    feat = torch.cat(compute_aev_blocked(payload, basis, layout, 'plain'),
+                     1).detach()
+    nn_entries(params, feat, model.grouping.counts)
+    launches, p, sel = drive('pallas', model, params, pos, box, cell_list)
+    steps = BLOCKS * REFRESH
+    require_launches('pallas', launches, {
+        'angular_aev_fwd': steps, 'angular_aev_bwd': steps,
+        'fused_nn_fwdgrad': 2 * steps, 'fused_nn_fwd': 1})
+    step_vs_plain('pallas', model, params, p, box, cell_list, sel)
+
+
+def bucketed(model, water, cell_list):
+    """The model with cell-occupancy bucketing forced: small-class caps one
+    under the median per-(cell, species) occupancy."""
+    layout = model.blocked_layout
+    grid = np.asarray(layout.cell_grid)
+    frac = water.positions.astype(np.float64) @ np.linalg.inv(water.box)
+    c3 = np.minimum(((frac - np.floor(frac)) * grid).astype(int), grid - 1)
+    cid = (c3[:, 0] * grid[1] + c3[:, 1]) * grid[2] + c3[:, 2]
+    occ = np.stack([np.bincount(cid[model.species_array == s],
+                                minlength=cell_list.num_cells)
+                    for s in layout.present], 1)
+    small = tuple(int(x) for x in np.maximum(np.median(occ, 0) - 1, 1))
+    n_big = int((occ > np.asarray(small)).any(1).sum())
+    return dataclasses.replace(model, blocked_layout=dataclasses.replace(
+        layout, small_caps=small,
+        num_big_cells=min(-(-(n_big + 8) // 8) * 8, cell_list.num_cells)))
+
+
+def window_kernel_phase(basis, params):
+    """Phase 4: every kernel of the window path against its plain version,
+    on the inputs one selection and one step give it."""
+    water, model, cell_list, pos, box = build(MOLECULES, 'window', basis)
+    layout = model.blocked_layout
+    print(f'window: atoms {model.num_atoms}, grid {layout.cell_grid} '
+          f'cell_caps {layout.cell_caps}, angular grid {layout.ang_cell_grid} '
+          f'caps {layout.ang_cell_caps}, ang_caps {layout.ang_caps}, tiers '
+          f'{layout.ang_tier_caps} rows {layout.ang_tier_rows}, bucketing '
+          f'{layout.small_caps} / {layout.num_big_cells}')
+    packs, radials, angulars, feats = [], [], [], []
+    with recording(window_mod, 'left_pack', packs):
+        sel = model.select(pos, box, cell_list)
+    with recording(window_mod, 'window_radial', radials), \
+            recording(cuda_aev, 'angular_aev', angulars), \
+            recording(ani_mod, 'ensemble_energy_grouped_rows_fused', feats):
+        model.energy_and_forces_from_selection(params, pos, box, cell_list,
+                                               sel)
+    big = bucketed(model, water, cell_list)
+    big_radials = []
+    with recording(window_mod, 'window_radial', big_radials):
+        big_sel = big.select(pos, box, cell_list)
+        big.check_overflow(pos, box, cell_list, big_sel)
+        big.energy_and_forces_from_selection(params, pos, box, cell_list,
+                                             big_sel)
+    ntiers = 1 + len(layout.ang_tier_caps or ())
+    if not (len(packs) == 1 and len(radials) == 1 and len(big_radials) == 2
+            and len(angulars) == ntiers and len(feats) == 1):
+        raise AssertionError('unexpected kernel calls: '
+                             f'{len(packs)} {len(radials)} {len(big_radials)}'
+                             f' {len(angulars)} {len(feats)}')
+    (args, _), = packs
+    kernels = {'left_pack': left_pack_entry(*args)}
+    fwd, bwd = radial_entries(*radials[0])
+    print(f'bucketed radial (small_caps {big.blocked_layout.small_caps}, '
+          f'num_big_cells {big.blocked_layout.num_big_cells}):')
+    for args, kwargs in big_radials:
+        b_fwd, b_bwd = radial_entries(args, kwargs)
+        fwd['max_abs_err'] = max(fwd['max_abs_err'], b_fwd['max_abs_err'])
+        bwd['max_abs_err'] = max(bwd['max_abs_err'], b_bwd['max_abs_err'])
+    kernels.update(window_radial_fwd=fwd, window_radial_bwd=bwd)
+    ang = [angular_entries(a[0].detach().contiguous(), a[1].contiguous(),
+                           *a[2:5]) for a, _ in angulars]
+    kernels['angular_aev_fwd'] = merge([f for f, _ in ang])
+    kernels['angular_aev_bwd'] = merge([b for _, b in ang])
+    (args, _), = feats
+    kernels['fused_nn_fwd'], kernels['fused_nn_fwdgrad'] = nn_entries(
+        params, args[1].detach(), args[2])
+    for k in kernels.values():
+        print(f"{k['name']}: kernel {k['ms']:.4f} ms (CUDA graph; eager "
+              f"launches {k['event_ms']:.4f} ms), plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']}), max|err| {k['max_abs_err']:.3g}")
+    return model, cell_list, pos, box, kernels
+
+
+def window_large_phase(basis, params):
+    """Phase 6: one selection and 4 steps at 26,010 atoms."""
+    _, model, cell_list, pos, box = build(LARGE_MOLECULES, 'window', basis)
+    layout = model.blocked_layout
+    print(f'window 26k: atoms {model.num_atoms}, grid {layout.cell_grid} '
+          f'cell_caps {layout.cell_caps}, bucketing {layout.small_caps} / '
+          f'{layout.num_big_cells}, tiers {layout.ang_tier_caps}')
+    if layout.small_caps is None or len(layout.ang_tier_caps or ()) != 3:
+        raise AssertionError('26k plan: expected bucketing and four tiers')
+    t0 = time.perf_counter()
+    sel = model.select(pos, box, cell_list)
+    model.check_overflow(pos, box, cell_list, sel)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    model.energy_and_forces_from_selection(params, pos, box, cell_list, sel)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    p = pos
+    start.record()
+    for _ in range(LARGE_STEPS):
+        e, f = model.energy_and_forces_from_selection(params, p, box,
+                                                      cell_list, sel)
+        p = p + 1e-6 * f
+    end.record()
+    torch.cuda.synchronize()
+    model.check_overflow(p, box, cell_list, sel)
+    if not (torch.isfinite(e) and torch.isfinite(f).all()):
+        raise AssertionError('26k: non-finite energy or forces')
+    print(f'window 26k: first selection {1e3 * select_s:.1f} ms (host clock, '
+          f'with check_overflow), {start.elapsed_time(end) / LARGE_STEPS:.3f} '
+          f'ms/step over {LARGE_STEPS} steps (CUDA events, frozen selection),'
+          f' E {float(e):.4f}')
 
 
 def main():
@@ -92,183 +598,31 @@ def main():
     print(f'kernel build/load: {time.perf_counter() - t0:.1f} s '
           f'({_kernels.library_path().name})')
 
-    water = make_water_box(MOLECULES, seed=SEED)
     basis = ANIBasis.ani2x()
-    model = ANIModel.from_atomic_numbers(
-        water.atomic_numbers, basis, nn_dtype='bfloat16',
-        nn_impl='fused').with_blocked_layout(
-            water.positions, water.box, margin=1.15, impl='pallas', skin=SKIN)
-    layout = model.blocked_layout
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
-    params = init_ani_params(gen, basis, num_models=8, device=DEV)
-    box = torch.tensor(water.box, device=DEV)
-    pos = torch.tensor(water.positions, device=DEV)
-    cell_list = model.create_cell_list(water.box, skin=SKIN)
-    print(f'atoms {model.num_atoms}, layout rad_caps {layout.rad_caps} '
-          f'ang_caps {layout.ang_caps}, cells {cell_list.ncells} x '
-          f'{cell_list.cell_capacity}')
+    params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
+                             basis, num_models=8, device=DEV)
+    pallas_phase(basis, params)
+    model, cell_list, pos, box, kernels = window_kernel_phase(basis, params)
 
-    # ---- Phase 3: every kernel against its plain version, main-path shapes.
-    sel = model.select(pos, box, cell_list)
-    order, _ = model._device_arrays(DEV)
-    payload = payload_from_blocked(cell_list, pos, box, sel, rad_only=True,
-                                   layout=layout,
-                                   row_order=sel.inv_order[order])
-    deltas = payload.rad_deltas.detach().contiguous()
-    mask = payload.ang_mask.contiguous()
-    width = deltas.shape[2]
-    spec = cuda_aev._spec(basis, layout, width, DEV)
-    print(f'angular input {tuple(deltas.shape)}, lanes {layout.ang_total}, '
-          f'triples {len(spec.jj)}, segments {spec.n_seg}')
-    kernels = []
-
-    raw_k = cuda_aev.angular_fwd_cuda(deltas, mask, spec)
-    raw_p = cuda_aev.angular_aev_plain(deltas, mask, basis, layout, width)
-    a_k = cuda_aev.place_angular(raw_k, basis, layout)
-    a_p = cuda_aev.place_angular(raw_p, basis, layout)
-    check_close('angular fwd', a_k, a_p, rtol=3e-5, atol=3e-6)
-    kernels.append(dict(
-        name='angular_aev_fwd', route='cuda',
-        source='nnpops_tpu_torch/csrc/angular_aev.cu',
-        replaces='nnpops_tpu/ops/pallas_aev.py:409',
-        max_abs_err=max_abs(a_k, a_p),
-        ms=cuda_ms(lambda: cuda_aev.angular_fwd_cuda(deltas, mask, spec)),
-        plain_ms=cuda_ms(lambda: cuda_aev.angular_aev_plain(
-            deltas, mask, basis, layout, width))))
-
-    # Gradient of sum(a^2), the JAX suite's angular gradient check.
-    d_k = deltas.clone().requires_grad_(True)
-    (g_k,) = torch.autograd.grad(
-        cuda_aev.angular_aev(d_k, mask, basis, layout, width).square().sum(), d_k)
-    d_p = deltas.clone().requires_grad_(True)
-    raw_pg = cuda_aev.angular_aev_plain(d_p, mask, basis, layout, width)
-    (g_p,) = torch.autograd.grad(
-        cuda_aev.place_angular(raw_pg, basis, layout).square().sum(), d_p,
-        retain_graph=True)
-    check_close('angular bwd', g_k, g_p, rtol=2e-4, atol=2e-5)
-    # Both backward times take the same cotangent of the kernel's raw
-    # [N, n_seg * 32] output, so they time the same work.
-    raw_req = raw_k.detach().requires_grad_(True)
-    (raw_cot,) = torch.autograd.grad(
-        cuda_aev.place_angular(raw_req, basis, layout).square().sum(), raw_req)
-    raw_cot = raw_cot.contiguous()
-    kernels.append(dict(
-        name='angular_aev_bwd', route='cuda',
-        source='nnpops_tpu_torch/csrc/angular_aev.cu',
-        replaces='nnpops_tpu/ops/pallas_aev.py:565',
-        max_abs_err=max_abs(g_k, g_p),
-        ms=cuda_ms(lambda: cuda_aev.angular_bwd_cuda(deltas, mask, raw_cot, spec)),
-        plain_ms=cuda_ms(lambda: torch.autograd.grad(
-            raw_pg, d_p, raw_cot, retain_graph=True))))
-
-    feat = torch.cat(compute_aev_blocked(payload, basis, layout, 'plain'),
-                     1).detach()
-    counts = model.grouping.counts
-    nn_rows = []
-    start = 0
-    for s, count in enumerate(counts):
-        if count:
-            nn_rows.append((params.ensemble.networks[s],
-                            feat[start:start + count].contiguous()))
-            start += count
-    stats = {'fwd': [0.0, 0.0, 0.0], 'fwdgrad': [0.0, 0.0, 0.0]}
-    for net, x in nn_rows:
-        packed = cuda_nn.pack_species_net(net)
-        e_k, _ = cuda_nn.launch_packed(x, packed, False)
-        e_p, _ = cuda_nn.fused_species_net_plain(x, net)
-        # Normwise: a bf16 operand can round the other way when the f32
-        # accumulation order differs, which moves a near-zero atom's energy
-        # by far more than 1e-3 of itself but not of the block's scale.
-        check_normwise('fused nn fwd', e_k, e_p, rtol=1e-3)
-        e_kg, dx_k = cuda_nn.launch_packed(x, packed, True)
-        e_pg, dx_p = cuda_nn.fused_species_net_plain(x, net, with_grad=True)
-        check_normwise('fused nn fwdgrad e', e_kg, e_pg, rtol=1e-3)
-        check_normwise('fused nn fwdgrad dx', dx_k, dx_p, rtol=1e-2)
-        for key, err, fk, fp in (
-                ('fwd', max_abs(e_k, e_p),
-                 lambda: cuda_nn.launch_packed(x, packed, False),
-                 lambda: cuda_nn.fused_species_net_plain(x, net)),
-                ('fwdgrad', max(max_abs(e_kg, e_pg), max_abs(dx_k, dx_p)),
-                 lambda: cuda_nn.launch_packed(x, packed, True),
-                 lambda: cuda_nn.fused_species_net_plain(x, net, True))):
-            st = stats[key]
-            st[0] = max(st[0], err)
-            st[1] += cuda_ms(fk)
-            st[2] += cuda_ms(fp)
-        print(f'fused nn rows {x.shape[0]} dims {packed.dims}: '
-              f'max|de| {max_abs(e_kg, e_pg):.3g} (max|e| '
-              f'{float(e_pg.abs().max()):.3g}) max|ddx| '
-              f'{max_abs(dx_k, dx_p):.3g} (max|dx| {float(dx_p.abs().max()):.3g})')
-    for key, line in (('fwd', 105), ('fwdgrad', 136)):
-        err, ms, plain_ms = stats[key]
-        kernels.append(dict(
-            name=f'fused_nn_{key}', route='cuda',
-            source='nnpops_tpu_torch/csrc/fused_nn.cu',
-            replaces=f'nnpops_tpu/ops/pallas_nn.py:{line}',
-            max_abs_err=err, ms=ms, plain_ms=plain_ms))
-    for k in kernels:
-        print(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
-              f"ms, max|err| {k['max_abs_err']:.3g}")
-    del d_p, raw_pg, g_p, raw_p, a_p
-
-    # ---- Phase 4: the main path.
-    def force_block(p):
-        sel = model.select(p, box, cell_list)
-        energies = []
-        for _ in range(REFRESH):
-            e, f = model.energy_and_forces_from_selection(params, p, box,
-                                                          cell_list, sel)
-            energies.append(e)
-            p = p + 1e-6 * f
-        return p, sel, f, torch.stack(energies)
-
-    force_block(pos)                                  # warm-up, not counted
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    p = pos
-    start.record()
-    for _ in range(BLOCKS):
-        p, sel, f, energies = force_block(p)
-        model.check_overflow(p, box, cell_list, sel)
-    end.record()
-    torch.cuda.synchronize()
-    ms_per_step = start.elapsed_time(end) / (BLOCKS * REFRESH)
-    with torch.no_grad():
-        e_final = model.energy_from_selection(params, p, box, cell_list, sel)
-    torch.cuda.synchronize()
-    launches = dict(_kernels.LAUNCHES)
-    print(f'main path: {BLOCKS * REFRESH} steps, {ms_per_step:.3f} ms/step '
-          f'(CUDA events, selection included), launches {launches}')
-    if not (torch.isfinite(energies).all() and torch.isfinite(f).all()
-            and torch.isfinite(e_final)):
-        raise AssertionError('non-finite energy or forces')
-    if tuple(f.shape) != (model.num_atoms, 3):
-        raise AssertionError(f'forces shape {tuple(f.shape)}')
+    # Phase 5: the window main path.
+    launches, p, sel = drive('window', model, params, pos, box, cell_list)
     steps = BLOCKS * REFRESH
-    need = {'angular_aev_fwd': steps, 'angular_aev_bwd': steps,
-            'fused_nn_fwdgrad': 2 * steps, 'fused_nn_fwd': 1}
-    for name, n in need.items():
-        if launches[name] < n:
-            raise AssertionError(f'{name}: {launches[name]} launches < {n}')
-    for k in kernels:
+    ntiers = 1 + len(model.blocked_layout.ang_tier_caps or ())
+    require_launches('window', launches, {
+        'left_pack': BLOCKS, 'window_radial_fwd': steps,
+        'window_radial_bwd': steps, 'angular_aev_fwd': ntiers * steps,
+        'angular_aev_bwd': ntiers * steps, 'fused_nn_fwdgrad': 2 * steps,
+        'fused_nn_fwd': 1})
+    step_vs_plain('window', model, params, p, box, cell_list, sel)
+    for k in kernels.values():
         k['launches'] = launches[k['name']]
 
-    # One step through the kernels against the same step through the plain
-    # versions, on the card.
-    e_k, f_k = model.energy_and_forces_from_selection(params, p, box,
-                                                      cell_list, sel)
-    e_p, f_p = plain_energy_and_forces(model, params, p, box, cell_list, sel)
-    check_close('step energy', e_k, e_p, rtol=1e-3, atol=0.0)
-    check_normwise('step forces', f_k, f_p, rtol=5e-3)
-    print(f'step vs plain: E {float(e_k):.6f} vs {float(e_p):.6f}, '
-          f'max|dF| {max_abs(f_k, f_p):.3g} (max|F| {float(f_p.abs().max()):.3g})')
+    window_large_phase(basis, params)
 
-    print(json.dumps({'kernels': [
-        {key: k[key] for key in ('name', 'route', 'source', 'replaces',
-                                 'launches', 'max_abs_err', 'ms', 'plain_ms')}
-        for k in kernels]}))
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    print(json.dumps({'kernels': [{key: k[key] for key in keys}
+                                  for k in kernels.values()]}))
     print(smi[0])
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

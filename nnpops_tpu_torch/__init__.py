@@ -8,13 +8,13 @@ C++ kernel for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use
 (``_kernels.py``); each kernel's wrapper runs the kernel on a CUDA tensor and
 its plain PyTorch version on a CPU tensor.
 
-The package imports ``torch`` and never ``jax``. It reuses the JAX package's
-numpy-only modules (``nnpops_tpu.config``, ``nnpops_tpu.utils.water``),
-which import no JAX either.
+The package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: it keeps its own copies of the numpy-only configuration
+(``config.py``) and water builders (``utils.py``).
 """
 import torch
 
-from nnpops_tpu.config import ANI2X_ELEMENTS, ANI2X_LAYER_DIMS, ANIBasis
+from .config import ANI2X_ELEMENTS, ANI2X_LAYER_DIMS, ANIBasis
 
 # Box products (fractional coordinates, minimum-image wraps) must run in true
 # f32: a reduced-precision box once put 0.03 A errors on wrapped atoms in

@@ -2,7 +2,8 @@
 
 The kernels live in ``csrc/*.cu`` as plain ``extern "C"`` entry points. On
 the first CUDA call, :func:`library` compiles them with ``nvcc`` for
-``sm_90a`` into one shared library under ``_build/`` (named by a hash of the
+``sm_90a`` (one ``nvcc -c`` per source, all started together, then one
+link) into one shared library under ``_build/`` (named by a hash of the
 sources and flags, so an edited source rebuilds) and loads it with
 ``ctypes``. Importing this module builds nothing and needs no ``nvcc``.
 
@@ -22,12 +23,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / 'csrc'
 BUILD_DIR = Path(__file__).parent / '_build'
-SOURCES = ('angular_aev.cu', 'fused_nn.cu')
+SOURCES = ('angular_aev.cu', 'fused_nn.cu', 'left_pack.cu', 'window_radial.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '-Xcompiler', '-fPIC')
 
 LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0,
-            'fused_nn_fwd': 0, 'fused_nn_fwdgrad': 0}
+            'fused_nn_fwd': 0, 'fused_nn_fwdgrad': 0,
+            'left_pack': 0, 'window_radial_fwd': 0, 'window_radial_bwd': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,18 @@ _SIGNATURES = {
     # stream
     'fused_nn_fwd': (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
     'fused_nn_fwdgrad': (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
+    # keys, packed, counts, n_rows, width, k_total, npres, widths, caps
+    # (host arrays), stream
+    'left_pack': (_P,) * 3 + (_I,) * 4 + (_P,) * 3,
+    # candx, candy, candz, centers, out, ncells, npres, kk, lane_lo,
+    # lane_hi, ctr_off, self_shift (host), n_r, eta, rs (host), rc, scale,
+    # stream
+    'window_radial_fwd': (_P,) * 5 + (_I,) * 3 + (_P,) * 4
+                         + (_I, _P, _P, _D, _D, _P),
+    # candx, candy, candz, centers, g, dcand [3, ncells, kk] (zeroed),
+    # dctr, then as the forward from ncells on
+    'window_radial_bwd': (_P,) * 7 + (_I,) * 3 + (_P,) * 4
+                         + (_I, _P, _P, _D, _D, _P),
 }
 
 _lib = None
@@ -75,22 +89,41 @@ def library_path() -> Path:
     return BUILD_DIR / f'libnnpops_kernels_{digest.hexdigest()[:16]}.so'
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise naming each failed command."""
+    errors = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f'{" ".join(cmd)}\n{out}{err}')
+    if errors:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(errors))
+
+
 def build() -> Path:
-    """Compile ``csrc/`` into ``_build/`` unless the hashed library exists."""
+    """Compile ``csrc/`` into ``_build/`` unless the hashed library exists:
+    every source compiles in its own ``nvcc`` process, all at once, then
+    one ``nvcc -shared`` links the objects."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
-    os.replace(tmp, target)       # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = str(Path(tmpdir) / (Path(name).stem + '.o'))
+            cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, str(CSRC / name)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(obj)
+        _run(procs)
+        lib = str(Path(tmpdir) / 'lib.so')
+        cmd = [nvcc, *NVCC_FLAGS, '-shared', '-o', lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, target)   # atomic: a concurrent loader sees all or nothing
     return target
 
 

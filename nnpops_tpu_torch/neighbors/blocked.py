@@ -54,15 +54,40 @@ class BlockedLayout:
       species never change; absent species get zero lanes).
     rad_caps / ang_caps: per-present-species lane counts for the radial
       (full-cutoff) and angular (angular-cutoff) neighbor lists.
+
+    Window-mode fields (None unless planned for ``impl='window'``, see
+    ``neighbors.window``):
+    cell_caps / cell_grid: per-present-species cell-slot capacities of the
+      radial grid (species i holds slot ranks [sum(cell_caps[:i]),
+      sum(cell_caps[:i+1])) of its cell) and that grid.
+    small_caps / num_big_cells: cell-occupancy bucketing; cells whose
+      per-species occupancy fits small_caps run the radial kernel with
+      packed center rows, at most num_big_cells cells may exceed it.
+    ang_tier_caps / ang_tier_rows: angular row tiers; tier t >= 1 has the
+      nested smaller caps ang_tier_caps[t-1], ang_tier_rows[t][i] is the
+      planned row capacity of tier t for present species i (the last tier
+      takes the remaining rows).
+    ang_cell_caps / ang_cell_grid: a dedicated angular candidate grid
+      (None: share the radial grid).
     """
     num_species: int
     present: Tuple[int, ...]
     rad_caps: Tuple[int, ...]
     ang_caps: Tuple[int, ...]
+    cell_caps: Optional[Tuple[int, ...]] = None
+    cell_grid: Optional[Tuple[int, int, int]] = None
+    small_caps: Optional[Tuple[int, ...]] = None
+    num_big_cells: Optional[int] = None
+    ang_tier_caps: Optional[Tuple[Tuple[int, ...], ...]] = None
+    ang_tier_rows: Optional[Tuple[Tuple[int, ...], ...]] = None
+    ang_cell_caps: Optional[Tuple[int, ...]] = None
+    ang_cell_grid: Optional[Tuple[int, int, int]] = None
 
     def __post_init__(self):
         if not (len(self.present) == len(self.rad_caps) == len(self.ang_caps)):
             raise ValueError('present/rad_caps/ang_caps must align')
+        if self.cell_caps is not None and len(self.cell_caps) != len(self.present):
+            raise ValueError('cell_caps must align with present')
 
     @property
     def rad_total(self) -> int:
@@ -438,6 +463,7 @@ def payload_from_blocked(cell_list: CellList, positions: Tensor, box: Tensor,
                          rad_only: bool = False,
                          layout: Optional[BlockedLayout] = None,
                          row_order: Optional[Tensor] = None,
+                         num_slots: Optional[int] = None,
                          ) -> BlockedPayload:
     """The differentiable per-step phase: scatter current positions into the
     frozen slots, gather the radial lanes' neighbor positions (one gather,
@@ -450,11 +476,14 @@ def payload_from_blocked(cell_list: CellList, positions: Tensor, box: Tensor,
     ``row_order``: internal (cell-sorted) row index per output row; defaults
     to ``sel.inv_order`` (original atom order). A species-grouped order
     makes every payload row, and so every AEV row, come out grouped.
+    ``num_slots``: the selection's slot count when it was made on another
+    grid than ``cell_list``'s (the window path's angular grid).
     """
     n = positions.shape[0]
     pos_sorted = positions.index_select(0, sel.order)
-    if cell_list.use_cells:
-        cc = cell_list.num_cells * cell_list.cell_capacity
+    if cell_list.use_cells or num_slots is not None:
+        cc = (num_slots if num_slots is not None
+              else cell_list.num_cells * cell_list.cell_capacity)
         slots = torch.zeros(cc + 2, 3, dtype=positions.dtype,
                             device=positions.device)
         slots = slots.index_copy(0, sel.slot_of_sorted, pos_sorted)[:cc + 1]

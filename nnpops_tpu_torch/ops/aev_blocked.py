@@ -16,8 +16,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from nnpops_tpu.config import ANIBasis
-
+from ..config import ANIBasis
 from ..geometry import cosine_cutoff
 from ..neighbors.blocked import BlockedLayout, BlockedPayload
 from .aev import AEV, species_pair_index

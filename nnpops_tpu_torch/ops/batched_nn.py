@@ -42,14 +42,28 @@ class EnsembleParams(NamedTuple):
         return self.networks[0].weights[0].shape[0]
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point makes its tensors on: the CUDA card unless
+    the caller asks for another device (``device='cpu'``). Raises when the
+    card is asked for and there is none."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'nnpops_tpu_torch: no CUDA device is available; the entry points '
+            "run on the card unless the caller passes device='cpu'")
+    return device
+
+
 def init_ensemble(generator: torch.Generator, aev_length: int,
                   layer_dims: Sequence[Sequence[int]], num_models: int,
                   dtype: torch.dtype = torch.float32,
                   device=None) -> EnsembleParams:
     """Random-init an ensemble (He-style fan-in scaling, as the JAX init)
     for each species: aev -> h1 -> ... -> hk -> 1. ``generator`` draws on
-    its own device; the tensors then move to ``device``. The numbers differ
-    from ``jax.random``'s; tests carry JAX params across instead."""
+    its own device; the tensors then move to ``device`` (the CUDA card by
+    default, see :func:`resolve_device`). The numbers differ from
+    ``jax.random``'s; tests carry JAX params across instead."""
+    device = resolve_device(device)
     nets = []
     for dims in layer_dims:
         full = [aev_length, *dims, 1]

@@ -31,9 +31,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from nnpops_tpu.config import ANIBasis
-
 from .. import _kernels
+from ..config import ANIBasis
 from ..neighbors.blocked import BlockedLayout
 from .aev_blocked import triple_tables
 

@@ -9,6 +9,9 @@ tuples: ``(ensemble, self_energies)`` with ``ensemble = (networks,)`` and
 ``nnpops_tpu.utils.torchani_io.save_ensemble_npz``. It reads the file with
 numpy directly: that module's ``load_ensemble_npz`` builds JAX arrays, and
 this package runs where JAX is not installed.
+
+Both put the tensors on the CUDA card unless ``device`` says otherwise
+(``device='cpu'``).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from .models.ani import ANIParams
-from .ops.batched_nn import EnsembleParams, SpeciesNet
+from .ops.batched_nn import EnsembleParams, SpeciesNet, resolve_device
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -25,6 +28,7 @@ def _tensor(a, device) -> torch.Tensor:
 
 def from_jax_params(tree, device=None) -> ANIParams:
     """JAX ``ANIParams`` (numpy leaves) -> the port's ``ANIParams``."""
+    device = resolve_device(device)
     ensemble, self_energies = tree
     (networks,) = ensemble
     nets = tuple(SpeciesNet(tuple(_tensor(w, device) for w in weights),
@@ -37,6 +41,7 @@ def from_npz(path: str, device=None) -> ANIParams:
     """Load an ensemble saved in the TorchANI npz layout
     (``w_s{S}_m{M}_l{L}`` [out, in], ``b_s{S}_m{M}_l{L}`` [out],
     ``self_energies``). A file without self energies gets zeros."""
+    device = resolve_device(device)
     with np.load(path) as data:
         ns = int(data['num_species'])
         nm = int(data['num_models'])

@@ -1,9 +1,10 @@
 """Where the time of the port's MD force step goes, on one CUDA GPU.
 
 Builds the smoke configuration of ``chip_smoke.py`` (ANI-2x at full width,
-8 random models, bf16 fused ensemble, the 'pallas' configuration, skin
-0.25 A) on ``make_water_box(867)``, 2,601 atoms, and measures, in one
-process:
+8 random models, bf16 fused ensemble, skin 0.25 A, margin 1.15) on
+``make_water_box(867)``, 2,601 atoms, in the window configuration (the
+default; ``--impl pallas`` for the species-blocked one), and
+measures, in one process:
 
 1. the force step on a frozen selection, unprofiled: CUDA events and the
    host clock (synchronised), 3 runs of 8 steps;
@@ -13,16 +14,17 @@ process:
    device busy share is that kernel time over the unprofiled CUDA-event
    step time of phase 1 (the profiler slows the host, so its own wall time
    is not the step's);
-4. the payload gather and its autograd adjoint at this run's shapes, with
-   ``index_select`` (an ``index_add`` adjoint, what the port uses) against
-   advanced indexing (``slots[idx]``, a sort-based accumulating adjoint),
-   timed in the order A, B, B, A.
+4. the neighbor gather and its autograd adjoint at this run's shapes (the
+   payload gather of 'pallas', the angular tiers' gathers of 'window'),
+   with ``index_select`` (an ``index_add`` adjoint, what the port uses)
+   against advanced indexing (``slots[idx]``, a sort-based accumulating
+   adjoint), timed in the order A, B, B, A.
 
 Prints one JSON object as its last line; with ``--out-dir`` also writes
 the profiler's kernel table and a Chrome trace there. Run from the
 repository root on a machine with a CUDA GPU:
 
-    python3 -m nnpops_tpu_torch.profile_step --out-dir chiprun_out/profile
+    python3 -m nnpops_tpu_torch.profile_step --impl window --out-dir chiprun_out/profile
 """
 from __future__ import annotations
 
@@ -83,6 +85,7 @@ def _kernel_events(prof):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--impl', choices=('window', 'pallas'), default='window')
     ap.add_argument('--out-dir', type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -98,7 +101,10 @@ def main(argv=None):
     model = ANIModel.from_atomic_numbers(
         water.atomic_numbers, basis, nn_dtype='bfloat16',
         nn_impl='fused').with_blocked_layout(
-            water.positions, water.box, margin=1.15, impl='pallas', skin=0.25)
+            water.positions, water.box, margin=1.15, impl=args.impl, skin=0.25)
+    if model.aev_impl != args.impl:
+        raise SystemExit(f'profile_step: {args.impl} fell back to '
+                         f'{model.aev_impl}')
     params = init_ani_params(torch.Generator(device=dev).manual_seed(SEED),
                              basis, num_models=8, device=dev)
     box = torch.tensor(water.box, device=dev)
@@ -113,7 +119,8 @@ def main(argv=None):
 
     for _ in range(3):
         step()
-    res = {'card': card, 'atoms': model.num_atoms, 'steps': STEPS}
+    res = {'card': card, 'impl': args.impl, 'atoms': model.num_atoms,
+           'steps': STEPS}
 
     # 1-2: unprofiled step and selection times.
     res['step_ms_events'] = [_event_ms(step, STEPS) for _ in range(REPEATS)]
@@ -153,12 +160,19 @@ def main(argv=None):
                                       row_limit=40))
         prof.export_chrome_trace(str(args.out_dir / 'step_trace.json'))
 
-    # 4: the payload gather's adjoint, index_select against advanced indexing.
-    n_slots = (cell_list.num_cells * cell_list.cell_capacity + 1
-               if cell_list.use_cells else model.num_atoms + 1)
+    # 4: the neighbor gather's adjoint, index_select against advanced
+    # indexing.
+    if args.impl == 'window':
+        # The angular tiers gather from the angular grid's slots (+2 rows
+        # for the dropped and empty sentinels).
+        idx = torch.cat([t.reshape(-1) for t in sel.tier.idx])
+        n_slots = int(sel.ang.slot_to_atom.shape[0]) + 1
+    else:
+        idx = sel.nbr_rad.reshape(-1)
+        n_slots = (cell_list.num_cells * cell_list.cell_capacity + 1
+                   if cell_list.use_cells else model.num_atoms + 1)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     slots = torch.rand(n_slots, 3, device=dev, generator=gen).requires_grad_(True)
-    idx = sel.nbr_rad.reshape(-1)
     cot = torch.rand(idx.numel(), 3, device=dev, generator=gen)
     gathers = {'index_select': lambda: slots.index_select(0, idx),
                'advanced': lambda: slots[idx]}

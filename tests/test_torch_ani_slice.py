@@ -33,7 +33,7 @@ def system():
     basis = ANIBasis.ani2x()
     jp = j_init(jax.random.PRNGKey(0), basis, layer_dims=[(32, 24, 16)] * 7,
                 num_models=2)
-    tp = from_jax_params(jax.tree.map(np.asarray, jp))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), device='cpu')
     return water, basis, jp, tp
 
 
@@ -135,10 +135,12 @@ def test_check_overflow_raises_on_shrunk_capacity(system):
 
 
 def test_window_paths_raise_not_implemented(system):
+    """The window path itself is ported (``test_torch_window_slice.py``);
+    its 'cluster' and 'pair' radial kernels and the payload path are not."""
     water, basis, _, _ = system
     base = TModel.from_atomic_numbers(water.atomic_numbers, basis)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        base.with_blocked_layout(water.positions, water.box, impl='window')
+    assert base.with_blocked_layout(water.positions, water.box,
+                                    impl='window').aev_impl == 'window'
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         base.with_blocked_layout(water.positions, water.box, impl='pallas',
                                  radial_impl='cluster')
@@ -160,7 +162,7 @@ def test_from_npz_round_trip(system, tmp_path):
               for net in nets]
     sae = np.arange(basis.num_species, dtype=np.float32) - 3.0
     save_ensemble_npz(str(path), weights, biases, sae)
-    loaded = from_npz(str(path))
+    loaded = from_npz(str(path), device='cpu')
     np.testing.assert_array_equal(loaded.self_energies.numpy(), sae)
     for a, b in zip(loaded.ensemble.networks, tp.ensemble.networks):
         for x, y in zip(a.weights + a.biases, b.weights + b.biases):
@@ -169,8 +171,10 @@ def test_from_npz_round_trip(system, tmp_path):
 
 def test_init_ani_params_generator():
     basis = ANIBasis.ani2x()
-    p1 = t_init(torch.Generator().manual_seed(3), basis, num_models=2)
-    p2 = t_init(torch.Generator().manual_seed(3), basis, num_models=2)
+    p1 = t_init(torch.Generator().manual_seed(3), basis, num_models=2,
+                device='cpu')
+    p2 = t_init(torch.Generator().manual_seed(3), basis, num_models=2,
+                device='cpu')
     assert len(p1.ensemble.networks) == basis.num_species
     assert p1.ensemble.num_models == 2
     assert torch.equal(p1.ensemble.networks[6].weights[0],

@@ -7,6 +7,8 @@ CUDA device and skips without one. On the card, from the repository root
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,9 @@ from nnpops_tpu_torch.neighbors.blocked import (payload_from_blocked,
                                                 plan_blocked_layout,
                                                 select_blocked)
 from nnpops_tpu_torch.neighbors.cell_list import CellList
-from nnpops_tpu_torch.ops import batched_nn, cuda_aev, cuda_nn
+from nnpops_tpu_torch.neighbors.window import radial_window_inputs
+from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_nn, cuda_select,
+                                  cuda_window)
 from nnpops_tpu_torch.utils import make_water_box
 
 pytestmark = pytest.mark.cuda
@@ -90,7 +94,8 @@ def test_angular_wrapper_rejects_bad_input(dev):
 
 def random_net(dims, num_models, in_dim, dev, seed):
     gen = torch.Generator().manual_seed(seed)
-    ens = batched_nn.init_ensemble(gen, in_dim, [dims], num_models)
+    ens = batched_nn.init_ensemble(gen, in_dim, [dims], num_models,
+                                   device='cpu')
     net = ens.networks[0]
     biases = tuple(0.1 * torch.randn(b.shape, generator=gen) for b in net.biases)
     return batched_nn.SpeciesNet(tuple(w.to(dev) for w in net.weights),
@@ -136,5 +141,110 @@ def test_force_step_kernels_match_plain(dev):
     assert _kernels.LAUNCHES['fused_nn_fwdgrad'] == 2          # H and O
     e_p, f_p = plain_energy_and_forces(model, params, pos, box, cl, sel)
     assert _kernels.LAUNCHES['fused_nn_fwdgrad'] == 2
+    np.testing.assert_allclose(float(e_k), float(e_p), rtol=1e-3)
+    assert float((f_k - f_p).abs().max()) <= 5e-3 * float(f_p.abs().max())
+
+
+def window_setup(dev, molecules=150, bucketed=False):
+    """A window-path model on water(``molecules``) with a small random
+    ensemble, its cell list, positions, box and selection. ``bucketed``
+    forces cell-occupancy bucketing with small caps 5 under the planned
+    cell caps."""
+    water = make_water_box(molecules, seed=0)
+    basis = ANIBasis.ani2x()
+    model = ANIModel.from_atomic_numbers(
+        water.atomic_numbers, basis, nn_dtype='bfloat16',
+        nn_impl='fused').with_blocked_layout(water.positions, water.box,
+                                             margin=1.15, impl='window',
+                                             skin=0.25)
+    assert model.aev_impl == 'window'
+    cl = model.create_cell_list(water.box, skin=0.25)
+    if bucketed:
+        caps = model.blocked_layout.cell_caps
+        model = dataclasses.replace(model, blocked_layout=dataclasses.replace(
+            model.blocked_layout, small_caps=tuple(max(c - 5, 1) for c in caps),
+            num_big_cells=cl.num_cells - 4))
+    pos = torch.tensor(water.positions, device=dev)
+    box = torch.tensor(water.box, device=dev)
+    return model, cl, pos, box, model.select(pos, box, cl)
+
+
+def window_radial_inputs(model, cl, pos, sel):
+    """The radial kernel's inputs as ``window_features`` builds them."""
+    win, centers = radial_window_inputs(cl, pos, sel, model.blocked_layout)
+    return ([w.contiguous() for w in win], centers,
+            tuple(model.blocked_layout.cell_caps))
+
+
+def test_left_pack_kernel_matches_plain(dev):
+    rng = np.random.RandomState(7)
+    widths, caps = (486, 297), (32, 16)
+    keys = np.where(rng.rand(2601, sum(widths)) < rng.uniform(0, 0.1, (2601, 1)),
+                    rng.randint(0, 10 ** 6, (2601, sum(widths))), -1)
+    keys = torch.tensor(keys.astype(np.int32), device=dev)
+    before = _kernels.LAUNCHES['left_pack']
+    packed, counts = cuda_select.left_pack(keys, widths, caps)
+    assert _kernels.LAUNCHES['left_pack'] == before + 1
+    p_packed, p_counts = cuda_select.left_pack_plain(keys, widths, caps)
+    assert torch.equal(packed, p_packed)
+    assert torch.equal(counts, p_counts)
+    assert bool((counts > torch.tensor(caps, device=dev)).any())
+
+
+@pytest.mark.parametrize('packed', [False, True],
+                         ids=['full-rows', 'center-caps'])
+def test_window_radial_kernel_matches_plain(dev, packed):
+    model, cl, pos, _, sel = window_setup(dev)
+    (cx, cy, cz), centers, caps = window_radial_inputs(model, cl, pos, sel)
+    center_caps = None
+    if packed:
+        center_caps = tuple(max(c - 4, 1) for c in caps)
+        offs = np.cumsum((0,) + caps)[:-1]
+        centers = torch.cat([centers[:, int(o):int(o) + s]
+                             for o, s in zip(offs, center_caps)], 1)
+    basis = model.basis
+    args = (basis.radial_cutoff, basis.radial_eta, basis.radial_rs, caps,
+            basis.torchani)
+    ins_k = [t.detach().clone().requires_grad_(True)
+             for t in (cx, cy, cz, centers)]
+    ins_p = [t.detach().clone().requires_grad_(True)
+             for t in (cx, cy, cz, centers)]
+    before = dict(_kernels.LAUNCHES)
+    out_k = cuda_window.window_radial(*ins_k, *args, center_caps=center_caps)
+    out_p = cuda_window.window_radial_plain(*ins_p, *args,
+                                            center_caps=center_caps)
+    assert (float((out_k - out_p).detach().abs().max())
+            <= 1e-5 * float(out_p.detach().abs().max()))
+    g_k = torch.autograd.grad(out_k.square().sum(), ins_k)
+    g_p = torch.autograd.grad(out_p.square().sum(), ins_p)
+    for a, b in zip(g_k, g_p):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert _kernels.LAUNCHES['window_radial_fwd'] == before['window_radial_fwd'] + 1
+    assert _kernels.LAUNCHES['window_radial_bwd'] == before['window_radial_bwd'] + 1
+
+
+@pytest.mark.parametrize('bucketed', [False, True],
+                         ids=['window', 'bucketed'])
+def test_window_step_kernels_match_plain(dev, bucketed):
+    """The window path on water(150): one selection and one step through
+    the kernels against the step through the plain versions."""
+    _kernels.reset_launch_counts()
+    model, cl, pos, box, sel = window_setup(dev, bucketed=bucketed)
+    assert _kernels.LAUNCHES['left_pack'] == 1
+    model.check_overflow(pos, box, cl, sel)
+    params = init_ani_params(torch.Generator(device=dev).manual_seed(0),
+                             model.basis, device=dev)
+    e_k, f_k = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    tiers = 1 + len(model.blocked_layout.ang_tier_caps or ())
+    radial_calls = 2 if bucketed else 1
+    assert _kernels.LAUNCHES['window_radial_fwd'] == radial_calls
+    assert _kernels.LAUNCHES['window_radial_bwd'] == radial_calls
+    assert _kernels.LAUNCHES['angular_aev_fwd'] == tiers
+    assert _kernels.LAUNCHES['angular_aev_bwd'] == tiers
+    assert _kernels.LAUNCHES['fused_nn_fwdgrad'] == 2           # H and O
+    before = dict(_kernels.LAUNCHES)
+    e_p, f_p = plain_energy_and_forces(model, params, pos, box, cl, sel)
+    assert dict(_kernels.LAUNCHES) == before
     np.testing.assert_allclose(float(e_k), float(e_p), rtol=1e-3)
     assert float((f_k - f_p).abs().max()) <= 5e-3 * float(f_p.abs().max())

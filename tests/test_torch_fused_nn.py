@@ -115,7 +115,8 @@ def test_fused_total_matches_jax_grouped_fused():
 
 def test_init_ensemble_fan_in_scaling():
     gen = torch.Generator().manual_seed(0)
-    ens = tnn.init_ensemble(gen, 1008, ANI2X_LAYER_DIMS[:1], num_models=8)
+    ens = tnn.init_ensemble(gen, 1008, ANI2X_LAYER_DIMS[:1], num_models=8,
+                             device='cpu')
     w = ens.networks[0].weights
     assert [tuple(t.shape) for t in w] == [(8, 256, 1008), (8, 192, 256),
                                            (8, 160, 192), (8, 1, 160)]
@@ -124,7 +125,8 @@ def test_init_ensemble_fan_in_scaling():
                                    rtol=0.05)
     assert all(float(b.abs().max()) == 0.0 for b in ens.networks[0].biases)
     again = tnn.init_ensemble(torch.Generator().manual_seed(0), 1008,
-                              ANI2X_LAYER_DIMS[:1], num_models=8)
+                              ANI2X_LAYER_DIMS[:1], num_models=8,
+                              device='cpu')
     assert torch.equal(again.networks[0].weights[0], w[0])
 
 
