@@ -27,7 +27,25 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
 6. one selection and 4 steps of the window path at 26,010 atoms, where the
    planner turns on bucketing and four angular tiers: finite output, no
    overflow, ms/step;
-7. prints the kernels' JSON line, the card line again, then
+7. BASELINE config 5, ANI + PME Langevin MD (``models.combined.ANIWithPME``
+   with ``md.integrators``), on the JAX example's settings
+   (``examples/run_configs.py`` ``config5``: window ANI-2x, bf16 fused
+   ensemble, skin 0.25, margin 1.2, refresh 5, self energies
+   ``linspace(-40, -1, 7)``; PME grid the next power of two of the box
+   edge (at least 16), order 5, alpha 0.6, coulomb 1389.35457, exclusions
+   ``full((n, 1), -1)``, cutoff 5.0, bucketed window plan; charges x 0.2,
+   masses O 16 and H 1; BAOAB with dt 2e-4, friction 5, kT 0.596):
+   (a) at 2,601 atoms the PME window kernel's forward and backward against
+   their plain version on the inputs of one force step, timed, plus one
+   call with a forced bucketed plan and the intramolecular exclusions;
+   (b) the config-5 MD at 2,601 atoms: one warm-up block, then 8 blocks of
+   5 steps between CUDA events (ms/step, selection and PME included), the
+   count maxima against their capacities, ``check_overflow``, the launch
+   counts, and one step against the same step through the plain versions;
+   (c) config 5 at 26,010 atoms (bucketed PME plan, four angular tiers):
+   one warm-up block, then 2 blocks of 5 steps: finite, no overflow,
+   ms/step;
+8. prints the kernels' JSON line, the card line again, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Any failure raises (non-zero exit). Run from the repository root:
@@ -49,13 +67,19 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from nnpops_tpu_torch import ANIBasis, _kernels  # noqa: E402
+from nnpops_tpu_torch.md import (initialize, langevin_baoab,  # noqa: E402
+                                 run_md_sticky_counts)
+from nnpops_tpu_torch.models import combined as combined_mod  # noqa: E402
+from nnpops_tpu_torch.models.combined import (  # noqa: E402
+    C5_DT, C5_FRICTION, C5_KT, C5_REFRESH, C5_SELF_ENERGIES)
 from nnpops_tpu_torch.models import ani as ani_mod  # noqa: E402
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,  # noqa: E402
                                          plain_energy_and_forces)
 from nnpops_tpu_torch.neighbors import window as window_mod  # noqa: E402
 from nnpops_tpu_torch.neighbors.blocked import payload_from_blocked  # noqa: E402
-from nnpops_tpu_torch.ops import (cuda_aev, cuda_nn, cuda_select,  # noqa: E402
-                                  cuda_window)
+from nnpops_tpu_torch.ops import (cuda_aev, cuda_nn, cuda_pme,  # noqa: E402
+                                  cuda_select, cuda_window)
+from nnpops_tpu_torch.ops.pme import PME  # noqa: E402
 from nnpops_tpu_torch.ops.aev_blocked import compute_aev_blocked  # noqa: E402
 from nnpops_tpu_torch.utils import make_water_box  # noqa: E402
 
@@ -83,6 +107,15 @@ ANG_BWD_OPS = 420
 RAD_TEST_OPS = 10
 RAD_FWD_OPS = 135
 RAD_BWD_OPS = 205
+# pme_window.cu per (real center, window lane) pair tested and per pair
+# inside the cutoff (one evaluation per pair; its backward makes two).
+PME_TEST_OPS = 10
+PME_FWD_OPS = 22
+PME_BWD_OPS = 38
+
+# Depth of the config-5 runs (its settings are models.combined's).
+C5_BLOCKS = 8
+C5_LARGE_BLOCKS = 2
 
 REPLACES = {
     'angular_aev_fwd': 'nnpops_tpu/ops/pallas_aev.py:614',
@@ -92,11 +125,16 @@ REPLACES = {
     'left_pack': 'nnpops_tpu/ops/pallas_select.py:139',
     'window_radial_fwd': 'nnpops_tpu/ops/pallas_window.py:361',
     'window_radial_bwd': 'nnpops_tpu/ops/pallas_window.py:378',
+    # One pl.pallas_call (:288 with the cell map, :292 without) runs both
+    # kernels of B.5; each entry names its kernel body.
+    'pme_window_fwd': 'nnpops_tpu/ops/pallas_pme.py:177',
+    'pme_window_bwd': 'nnpops_tpu/ops/pallas_pme.py:199',
 }
 SOURCES = {
     'angular_aev': 'nnpops_tpu_torch/csrc/angular_aev.cu',
     'fused_nn': 'nnpops_tpu_torch/csrc/fused_nn.cu',
     'left_pack': 'nnpops_tpu_torch/csrc/left_pack.cu',
+    'pme_window': 'nnpops_tpu_torch/csrc/pme_window.cu',
     'window_radial': 'nnpops_tpu_torch/csrc/window_radial.cu',
 }
 
@@ -586,6 +624,215 @@ def window_large_phase(basis, params):
           f' E {float(e):.4f}')
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 5: ANI + PME Langevin MD.
+# ---------------------------------------------------------------------------
+
+def pme_entries(args, label):
+    """(fwd, bwd) entries of the PME window kernel on one recorded call of
+    ``pme_window(candx, candy, candz, candq, centers, excl, ncells3,
+    cutoff, alpha, coulomb)``; the backward takes the main path's cotangent
+    (ones: the energy is the sum of the rows)."""
+    planes = [t.detach().contiguous() for t in args[:5]]
+    excl = args[5].contiguous()
+    ncells3, cutoff, alpha, coulomb = args[6:10]
+    spec = cuda_pme._PmeSpec(ncells3, planes[4].shape[1], excl.shape[2],
+                             cutoff, alpha, coulomb)
+    out_k = cuda_pme.pme_window_fwd_cuda(*planes, excl, spec)
+    ins = [t.clone().requires_grad_(True) for t in planes]
+    out_p = cuda_pme.pme_window_plain(*ins, excl, *args[6:10])
+    check_close(f'{label} pme window fwd energy', out_k.sum(),
+                out_p.detach().sum(),
+                rtol=1e-5, atol=0.0)
+    g = torch.ones_like(out_k)
+    grads_k = cuda_pme.pme_window_bwd_cuda(*planes, excl, g, spec)
+    grads_p = torch.autograd.grad(out_p, ins, g, retain_graph=True)
+    for name, a, b in zip(('dcandx', 'dcandy', 'dcandz', 'dcandq',
+                           'dcenters'), grads_k, grads_p):
+        check_normwise(f'{label} pme window bwd {name}', a, b, rtol=1e-4)
+    # Work: every real center against its cell's window lanes, and the
+    # pairs inside the cutoff that are neither self nor excluded.
+    cx, cy, cz, _, ctr = planes
+    real = ctr[:, :, 0] < cuda_pme.EMPTY_ROW
+    d2 = sum((c[:, None, :] - ctr[:, :, i:i + 1]).square()
+             for i, c in enumerate((cx, cy, cz)))
+    slot = cuda_pme._lane_slots(ncells3, spec.c, DEV)
+    self_slot = (torch.arange(spec.ncells, device=DEV)[:, None] * spec.c
+                 + torch.arange(spec.c, device=DEV)[None, :])
+    pairs = ((d2 < float(cutoff) ** 2) & real[:, :, None]
+             & (slot[:, None, :] != self_slot[:, :, None]))
+    for e in range(excl.shape[2]):
+        pairs &= excl[:, :, e:e + 1] != slot[:, None, :]
+    inside = int(pairs.sum())
+    tested = int(real.sum()) * spec.kk
+    io = 4 * (4 * cx.numel() + ctr.numel() + excl.numel())
+    fwd = entry('pme_window_fwd', 'pme_window', max_abs(out_k, out_p),
+                lambda: cuda_pme.pme_window_fwd_cuda(*planes, excl, spec),
+                lambda: cuda_pme.pme_window_plain(*planes, excl, *args[6:10]),
+                io + 4 * out_k.numel(),
+                tested * PME_TEST_OPS + inside * PME_FWD_OPS, F32_OPS_PER_S)
+    bwd = entry('pme_window_bwd', 'pme_window',
+                max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
+                lambda: cuda_pme.pme_window_bwd_cuda(*planes, excl, g, spec),
+                lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True),
+                # Every input read once; the four planes' and the centers'
+                # cotangents written once.
+                io + 4 * (4 * cx.numel() + ctr.numel() + g.numel()),
+                tested * PME_TEST_OPS + inside * PME_BWD_OPS, F32_OPS_PER_S)
+    print(f'{label} pme window cells {spec.ncells} capacity {spec.c} lanes '
+          f'{spec.kk} exclusions {excl.shape[2]} (pairs tested {tested}, '
+          f'inside {inside}): fwd {fwd["ms"]:.4f} ms (eager '
+          f'{fwd["event_ms"]:.4f}, plain {fwd["plain_ms"]:.4f}), bwd '
+          f'{bwd["ms"]:.4f} ms (eager {bwd["event_ms"]:.4f}, plain '
+          f'{bwd["plain_ms"]:.4f}), energy {float(out_k.sum()):.4f} vs '
+          f'{float(out_p.detach().sum()):.4f}')
+    return fwd, bwd
+
+
+class Config5:
+    """BASELINE config 5 on ``make_water_box(molecules)``: the combined
+    model, its cell list, tensors on the card and the MD functions."""
+
+    def __init__(self, molecules, basis, params):
+        water = make_water_box(molecules, seed=SEED)
+        self.water, self.params = water, params
+        (self.ff, self.cells, self.pos, self.box, self.charges,
+         self.masses) = combined_mod.config5(water, basis, device=DEV)
+        self.ani = self.ff.ani
+        layout = self.ani.blocked_layout
+        print(f'config 5 at {len(water.positions)} atoms: PME grid '
+              f'{self.ff.pme.config.grid_shape}, window plan '
+              f'{self.ff.pme_window_plan}; ANI grid {layout.cell_grid} '
+              f'cell_caps {layout.cell_caps}, bucketing {layout.small_caps} '
+              f'/ {layout.num_big_cells}, tiers {layout.ang_tier_caps}')
+
+    def select(self, p):
+        return self.ff.select(p, self.box, self.cells)
+
+    def forces(self, sel, p):
+        return self.ff.energy_and_forces_from_selection(
+            self.params, p, self.charges, self.box, self.cells, sel)
+
+    def counts(self, sel, p):
+        return self.ff.overflow_counts(p, self.charges, self.box, self.cells,
+                                       sel)
+
+    def initial_state(self):
+        return initialize(lambda p: self.forces(self.select(p), p), self.pos,
+                          self.masses, C5_KT,
+                          torch.Generator(device=DEV).manual_seed(SEED + 1))
+
+    def run(self, state, blocks):
+        return run_md_sticky_counts(
+            self.select, self.forces,
+            lambda f: langevin_baoab(f, self.masses, C5_DT,
+                                     C5_FRICTION, C5_KT),
+            state, blocks * C5_REFRESH, C5_REFRESH, self.counts)
+
+    def timed_run(self, label, blocks):
+        """One warm-up block, then ``blocks`` blocks between CUDA events,
+        the launch counts set to 0 just before; checks and prints."""
+        state, _, _ = self.run(self.initial_state(), 1)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        final, energies, stats = self.run(state, blocks)
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        steps = blocks * C5_REFRESH
+        self.ff.check_counts(stats, self.cells)
+        self.ff.check_overflow(final.positions, self.charges, self.box,
+                               self.cells)
+        if not (torch.isfinite(energies).all()
+                and torch.isfinite(final.positions).all()
+                and torch.isfinite(final.velocities).all()):
+            raise AssertionError(f'{label}: non-finite MD state')
+        host = {k: v.cpu().tolist() for k, v in stats.items()}
+        print(f'{label}: {steps} Langevin steps, '
+              f'{start.elapsed_time(end) / steps:.3f} ms/step (CUDA events, '
+              f'selection every {C5_REFRESH} steps and PME included), energy '
+              f'{float(energies[0]):.4f} -> {float(energies[-1]):.4f}, count '
+              f'maxima {host} within {self.ff.capacities(self.cells)}, '
+              f'launches {launches}')
+        return final, launches
+
+
+def config5_phase(basis):
+    """Phase 7: BASELINE config 5 at 2,601 and 26,010 atoms. Returns the
+    PME window kernel's entries with their launches from (b)."""
+    params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
+                             basis, num_models=8,
+                             self_energies=C5_SELF_ENERGIES,
+                             device=DEV)
+    c5 = Config5(MOLECULES, basis, params)
+    ff = c5.ff
+
+    # (a) The PME window kernel on the inputs of one force step.
+    calls = []
+    sel = c5.select(c5.pos)
+    with recording(cuda_pme, 'pme_window', calls):
+        c5.forces(sel, c5.pos)
+    if len(calls) != 1:
+        raise AssertionError(f'pme_window called {len(calls)} times a step')
+    fwd, bwd = pme_entries(calls[0][0], 'config 5')
+    water = c5.water
+    n = len(water.positions)
+    excl = np.full((n, 2), -1, np.int32)
+    for m in range(n // 3):
+        o, h1, h2 = 3 * m, 3 * m + 1, 3 * m + 2
+        excl[o], excl[h1], excl[h2] = [h1, h2], [o, h2], [o, h1]
+    cfg = ff.pme.config
+    pme_x = PME(*cfg.grid_shape, cfg.order, cfg.alpha, cfg.coulomb, excl,
+                device=DEV)
+    grid3, cap = ff.pme_window_plan[:2]
+    bplan = (grid3, cap, max(8, cap - 8), int(np.prod(grid3)) // 2)
+    if int(pme_x.direct_window_overflow(c5.pos, c5.box, bplan)) > cap:
+        raise AssertionError('forced bucketed PME plan overflows')
+    calls = []
+    with recording(cuda_pme, 'pme_window', calls):
+        pme_x.compute_direct_window(c5.pos, c5.charges, ff.pme_cutoff,
+                                    c5.box, bplan)
+    print(f'bucketed PME plan {bplan}, 2 exclusions per atom:')
+    b_fwd, b_bwd = pme_entries(calls[0][0], 'bucketed')
+    fwd['max_abs_err'] = max(fwd['max_abs_err'], b_fwd['max_abs_err'])
+    bwd['max_abs_err'] = max(bwd['max_abs_err'], b_bwd['max_abs_err'])
+
+    # (b) The config-5 MD at 2,601 atoms.
+    final, launches = c5.timed_run('config 5 at 2,601 atoms', C5_BLOCKS)
+    steps = C5_BLOCKS * C5_REFRESH
+    ntiers = 1 + len(c5.ani.blocked_layout.ang_tier_caps or ())
+    require_launches('config 5', launches, {
+        'pme_window_fwd': steps, 'pme_window_bwd': steps,
+        'left_pack': C5_BLOCKS, 'window_radial_fwd': steps,
+        'window_radial_bwd': steps, 'angular_aev_fwd': ntiers * steps,
+        'angular_aev_bwd': ntiers * steps, 'fused_nn_fwdgrad': 2 * steps})
+    p = final.positions
+    sel = c5.select(p)
+    e_k, f_k = c5.forces(sel, p)
+    e_p, f_p = combined_mod.plain_energy_and_forces(
+        ff, params, p, c5.charges, c5.box, c5.cells, sel)
+    check_close('config 5 step energy', e_k, e_p, rtol=1e-3, atol=0.0)
+    check_normwise('config 5 step forces', f_k, f_p, rtol=5e-3)
+    print(f'config 5 step vs plain: E {float(e_k):.6f} vs {float(e_p):.6f}, '
+          f'max|dF| {max_abs(f_k, f_p):.3g} (max|F| '
+          f'{float(f_p.abs().max()):.3g})')
+    fwd['launches'] = launches['pme_window_fwd']
+    bwd['launches'] = launches['pme_window_bwd']
+
+    # (c) Config 5 at 26,010 atoms.
+    big = Config5(LARGE_MOLECULES, basis, params)
+    plan = big.ff.pme_window_plan
+    if (plan is None or plan[2] is None
+            or len(big.ani.blocked_layout.ang_tier_caps or ()) != 3):
+        raise AssertionError('config 5 at 26k: expected a bucketed PME plan '
+                             'and four angular tiers')
+    big.timed_run('config 5 at 26,010 atoms', C5_LARGE_BLOCKS)
+    return fwd, bwd
+
+
 def main():
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -618,6 +865,7 @@ def main():
         k['launches'] = launches[k['name']]
 
     window_large_phase(basis, params)
+    kernels['pme_window_fwd'], kernels['pme_window_bwd'] = config5_phase(basis)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')

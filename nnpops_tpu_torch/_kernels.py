@@ -23,13 +23,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / 'csrc'
 BUILD_DIR = Path(__file__).parent / '_build'
-SOURCES = ('angular_aev.cu', 'fused_nn.cu', 'left_pack.cu', 'window_radial.cu')
+SOURCES = ('angular_aev.cu', 'fused_nn.cu', 'left_pack.cu', 'pme_window.cu',
+           'window_radial.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
 LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0,
             'fused_nn_fwd': 0, 'fused_nn_fwdgrad': 0,
-            'left_pack': 0, 'window_radial_fwd': 0, 'window_radial_bwd': 0}
+            'left_pack': 0, 'pme_window_fwd': 0, 'pme_window_bwd': 0,
+            'window_radial_fwd': 0, 'window_radial_bwd': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +54,12 @@ _SIGNATURES = {
     # keys, packed, counts, n_rows, width, k_total, npres, widths, caps
     # (host arrays), stream
     'left_pack': (_P,) * 3 + (_I,) * 4 + (_P,) * 3,
+    # candx, candy, candz, candq, centers, excl, out, ncells, nx, ny, nz, c,
+    # ne, cutoff, alpha, coulomb, stream
+    'pme_window_fwd': (_P,) * 7 + (_I,) * 6 + (_D,) * 3 + (_P,),
+    # candx, candy, candz, candq, centers, excl, g, dcand [4, ncells, kk],
+    # dctr, then as the forward from ncells on
+    'pme_window_bwd': (_P,) * 9 + (_I,) * 6 + (_D,) * 3 + (_P,),
     # candx, candy, candz, centers, out, ncells, npres, kk, lane_lo,
     # lane_hi, ctr_off, self_shift (host), n_r, eta, rs (host), rc, scale,
     # stream

@@ -3,7 +3,7 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``tests/test_torch_config.py`` holds the copies equal to the JAX package's,
-field by field. ``CFConvConfig`` and ``PMEConfig`` come with their slices.
+field by field. ``CFConvConfig`` comes with its slice.
 """
 from __future__ import annotations
 
@@ -127,3 +127,28 @@ ANI2X_LAYER_DIMS: Tuple[Tuple[int, ...], ...] = (
     (160, 128, 96),    # F
     (160, 128, 96),    # Cl
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class PMEConfig:
+    """Particle Mesh Ewald configuration (pme/pme.py:52-92)."""
+    gridx: int
+    gridy: int
+    gridz: int
+    order: int
+    alpha: float
+    coulomb: float
+
+    def __post_init__(self):
+        if min(self.gridx, self.gridy, self.gridz) < 1:
+            raise ValueError('The grid dimensions must be positive')
+        if self.order < 1:
+            raise ValueError('order must be positive')
+        if self.alpha <= 0:
+            raise ValueError('alpha must be positive')
+        if self.coulomb <= 0:
+            raise ValueError('coulomb must be positive')
+
+    @property
+    def grid_shape(self) -> Tuple[int, int, int]:
+        return (self.gridx, self.gridy, self.gridz)

@@ -329,6 +329,17 @@ class ANIModel:
         sae = torch.sum(params.self_energies[species])
         return e_nn + sae
 
+    def energy_fused(self, params: ANIParams, positions: torch.Tensor,
+                     box: torch.Tensor, cell_list) -> torch.Tensor:
+        """Total energy with the selection built inline: ``select`` then
+        ``energy_from_selection``. The payload-carrying path of the JAX
+        package needs ``CellList.build_payload`` (ROADMAP A.4/A.6) and
+        raises."""
+        self._require_blocked()
+        return self.energy_from_selection(
+            params, positions, box, cell_list,
+            self.select(positions, box, cell_list))
+
     def energy_and_forces_from_selection(self, params: ANIParams,
                                          positions: torch.Tensor,
                                          box: torch.Tensor, cell_list,

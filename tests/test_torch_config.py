@@ -45,6 +45,22 @@ def test_ani2x_constants_equal_jax():
     assert tconfig.ANI2X_LAYER_DIMS == jconfig.ANI2X_LAYER_DIMS
 
 
+def test_pme_config_equals_jax():
+    assert [f.name for f in dataclasses.fields(tconfig.PMEConfig)] == [
+        f.name for f in dataclasses.fields(jconfig.PMEConfig)]
+    args = (14, 15, 16, 5, 4.985823141035867, 138.935)
+    assert dataclasses.astuple(tconfig.PMEConfig(*args)) == \
+        dataclasses.astuple(jconfig.PMEConfig(*args))
+    assert tconfig.PMEConfig(*args).grid_shape == (14, 15, 16)
+    for bad in ((0, 15, 16, 5, 1.0, 1.0), (14, 15, 16, 0, 1.0, 1.0),
+                (14, 15, 16, 5, 0.0, 1.0), (14, 15, 16, 5, 1.0, -1.0)):
+        with pytest.raises(ValueError) as t_err:
+            tconfig.PMEConfig(*bad)
+        with pytest.raises(ValueError) as j_err:
+            jconfig.PMEConfig(*bad)
+        assert str(t_err.value) == str(j_err.value)
+
+
 def assert_box_equal(t, j):
     for name in ('positions', 'atomic_numbers', 'charges', 'box'):
         a, b = getattr(t, name), getattr(j, name)

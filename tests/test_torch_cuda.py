@@ -16,13 +16,17 @@ import torch
 from nnpops_tpu_torch import ANI2X_LAYER_DIMS, ANIBasis, _kernels
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,
                                          plain_energy_and_forces)
+from nnpops_tpu_torch.models.combined import ANIWithPME
+from nnpops_tpu_torch.models.combined import \
+    plain_energy_and_forces as combined_plain
 from nnpops_tpu_torch.neighbors.blocked import (payload_from_blocked,
                                                 plan_blocked_layout,
                                                 select_blocked)
 from nnpops_tpu_torch.neighbors.cell_list import CellList
 from nnpops_tpu_torch.neighbors.window import radial_window_inputs
-from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_nn, cuda_select,
-                                  cuda_window)
+from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_nn, cuda_pme,
+                                  cuda_select, cuda_window)
+from nnpops_tpu_torch.ops.pme import PME
 from nnpops_tpu_torch.utils import make_water_box
 
 pytestmark = pytest.mark.cuda
@@ -245,6 +249,102 @@ def test_window_step_kernels_match_plain(dev, bucketed):
     assert _kernels.LAUNCHES['fused_nn_fwdgrad'] == 2           # H and O
     before = dict(_kernels.LAUNCHES)
     e_p, f_p = plain_energy_and_forces(model, params, pos, box, cl, sel)
+    assert dict(_kernels.LAUNCHES) == before
+    np.testing.assert_allclose(float(e_k), float(e_p), rtol=1e-3)
+    assert float((f_k - f_p).abs().max()) <= 5e-3 * float(f_p.abs().max())
+
+
+def pme_setup(dev, num_excl, molecules=150):
+    """PME on water(``molecules``) with ``num_excl`` exclusions per atom: 0,
+    1 (all -1, as config 5 passes) or 2 (the intramolecular partners)."""
+    water = make_water_box(molecules, seed=0)
+    n = len(water.positions)
+    excl = np.full((n, num_excl), -1, np.int32)
+    if num_excl == 2:
+        for m in range(n // 3):
+            o, h1, h2 = 3 * m, 3 * m + 1, 3 * m + 2
+            excl[o], excl[h1], excl[h2] = [h1, h2], [o, h2], [o, h1]
+    pme = PME(16, 16, 16, 5, 0.6, 1389.35457, excl, device=dev)
+    plan = pme.plan_direct_window(water.box, 5.0, water.positions)
+    tensors = (torch.tensor(water.positions, device=dev),
+               0.2 * torch.tensor(water.charges, device=dev),
+               torch.tensor(water.box, device=dev))
+    return water, pme, plan, tensors
+
+
+@pytest.mark.parametrize('num_excl', [0, 1, 2])
+def test_pme_window_kernel_matches_plain(dev, num_excl):
+    _, pme, plan, (pos, q, box) = pme_setup(dev, num_excl)
+    ncells3, cap = plan
+    *planes, excl = cuda_pme.pme_window_inputs(pos, q, box, pme.exclusions,
+                                               ncells3, cap)
+    assert excl.shape[2] == max(num_excl, 1)
+    args = (ncells3, 5.0, 0.6, 1389.35457)
+    ins_k = [t.detach().clone().requires_grad_(True) for t in planes]
+    ins_p = [t.detach().clone().requires_grad_(True) for t in planes]
+    before = dict(_kernels.LAUNCHES)
+    out_k = cuda_pme.pme_window(*ins_k, excl, *args)
+    out_p = cuda_pme.pme_window_plain(*ins_p, excl, *args)
+    np.testing.assert_allclose(float(out_k.detach().sum()),
+                               float(out_p.detach().sum()),
+                               rtol=1e-5)
+    assert (float((out_k - out_p).detach().abs().max())
+            <= 1e-5 * float(out_p.detach().abs().max()))
+    g = torch.randn(out_p.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(0), device=dev)
+    g_k = torch.autograd.grad(out_k, ins_k, g)
+    g_p = torch.autograd.grad(out_p, ins_p, g)
+    for a, b in zip(g_k, g_p):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert _kernels.LAUNCHES['pme_window_fwd'] == before['pme_window_fwd'] + 1
+    assert _kernels.LAUNCHES['pme_window_bwd'] == before['pme_window_bwd'] + 1
+
+
+def test_pme_direct_bucketed_plan_matches_plain(dev):
+    """A forced bucketed 4-tuple plan with real exclusions: the direct
+    energy and its position and charge gradients through the kernel against
+    the plain version, and against the unbucketed plan."""
+    water, pme, plan, (pos, q, box) = pme_setup(dev, 2, molecules=867)
+    bplan = (plan[0], plan[1], max(8, plan[1] - 8), plan[0][0] ** 3 // 2)
+    assert int(pme.direct_window_overflow(pos, box, bplan)) <= plan[1]
+
+    def run(p_plan, plain):
+        p = pos.clone().requires_grad_(True)
+        qq = q.clone().requires_grad_(True)
+        e = pme.compute_direct_window(p, qq, 5.0, box, p_plan, plain=plain)
+        return (e.detach(), *torch.autograd.grad(e, (p, qq)))
+
+    got, want, flat = run(bplan, False), run(bplan, True), run(plan, False)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for a, b in zip(got, flat):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_combined_step_kernels_match_plain(dev):
+    """ANI + PME on water(150): one step through every kernel against the
+    same step through the plain versions."""
+    water, pme, _, (pos, q, box) = pme_setup(dev, 1)
+    ani = ANIModel.from_atomic_numbers(
+        water.atomic_numbers, ANIBasis.ani2x(), nn_dtype='bfloat16',
+        nn_impl='fused').with_blocked_layout(water.positions, water.box,
+                                             impl='window', skin=0.25)
+    ff = ANIWithPME.create(ani, pme, 5.0, positions=water.positions,
+                           box=water.box)
+    cl = ani.create_cell_list(water.box, skin=0.25)
+    params = init_ani_params(torch.Generator(device=dev).manual_seed(0),
+                             ani.basis, device=dev)
+    sel = ff.select(pos, box, cl)
+    ff.check_overflow(pos, q, box, cl, sel)
+    _kernels.reset_launch_counts()
+    e_k, f_k = ff.energy_and_forces_from_selection(params, pos, q, box, cl,
+                                                   sel)
+    assert _kernels.LAUNCHES['pme_window_fwd'] == 1
+    assert _kernels.LAUNCHES['pme_window_bwd'] == 1
+    assert _kernels.LAUNCHES['window_radial_bwd'] >= 1
+    before = dict(_kernels.LAUNCHES)
+    e_p, f_p = combined_plain(ff, params, pos, q, box, cl, sel)
     assert dict(_kernels.LAUNCHES) == before
     np.testing.assert_allclose(float(e_k), float(e_p), rtol=1e-3)
     assert float((f_k - f_p).abs().max()) <= 5e-3 * float(f_p.abs().max())

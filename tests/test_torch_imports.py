@@ -60,5 +60,6 @@ def test_import_builds_nothing():
     assert _kernels._lib is None
     assert set(_kernels.LAUNCHES) == {'angular_aev_fwd', 'angular_aev_bwd',
                                       'fused_nn_fwd', 'fused_nn_fwdgrad',
-                                      'left_pack', 'window_radial_fwd',
+                                      'left_pack', 'pme_window_fwd',
+                                      'pme_window_bwd', 'window_radial_fwd',
                                       'window_radial_bwd'}
