@@ -45,14 +45,26 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    (c) config 5 at 26,010 atoms (bucketed PME plan, four angular tiers):
    one warm-up block, then 2 blocks of 5 steps: finite, no overflow,
    ms/step;
-8. prints the kernels' JSON line, the card line again, then
+8. SchNet/CFConv, the JAX package's ``bench_cfconv_periodic`` chain at
+   full width (``models.schnet.periodic_stack``: 26,010 atoms at density
+   0.1, width 128, 50 Gaussians, 10 A cutoff, 6 layers, a 6x6x6 cell grid,
+   640 neighbor lanes, 2048-row chunks): (a) the CFConv backward kernel
+   against its plain version on the inputs of one layer's backward, timed,
+   plus one small call with the tanh activation; (b) 1 warm-up and 2 timed
+   iterations (select with mirror, distance payload, 6 layers, gradients
+   of the sum with respect to positions, inputs and weights; ms/iteration,
+   no overflow, 6 kernel launches an iteration), then one iteration
+   against the same iteration through the plain backward; (c) the pair
+   path, which has no kernel: config 2 (``SchNetModel``, 21 atoms, 3
+   interactions) and the O(N^2) harness (the stack over
+   ``build_cfconv_neighbors`` at 1,000 atoms);
+9. prints the kernels' JSON line, the card line again, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Any failure raises (non-zero exit). Run from the repository root:
 
     python3 chip_smoke.py
 """
-import contextlib
 import dataclasses
 import json
 import subprocess
@@ -73,14 +85,18 @@ from nnpops_tpu_torch.models import combined as combined_mod  # noqa: E402
 from nnpops_tpu_torch.models.combined import (  # noqa: E402
     C5_DT, C5_FRICTION, C5_KT, C5_REFRESH, C5_SELF_ENERGIES)
 from nnpops_tpu_torch.models import ani as ani_mod  # noqa: E402
+from nnpops_tpu_torch.models import schnet as schnet_mod  # noqa: E402
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,  # noqa: E402
                                          plain_energy_and_forces)
 from nnpops_tpu_torch.neighbors import window as window_mod  # noqa: E402
 from nnpops_tpu_torch.neighbors.blocked import payload_from_blocked  # noqa: E402
-from nnpops_tpu_torch.ops import (cuda_aev, cuda_nn, cuda_pme,  # noqa: E402
-                                  cuda_select, cuda_window)
+from nnpops_tpu_torch.ops import (cuda_aev, cuda_cfconv,  # noqa: E402
+                                  cuda_nn, cuda_pme, cuda_select,
+                                  cuda_window)
+from nnpops_tpu_torch.ops.cfconv import build_cfconv_neighbors  # noqa: E402
 from nnpops_tpu_torch.ops.pme import PME  # noqa: E402
 from nnpops_tpu_torch.ops.aev_blocked import compute_aev_blocked  # noqa: E402
+from nnpops_tpu_torch.profile_step import recording  # noqa: E402
 from nnpops_tpu_torch.utils import make_water_box  # noqa: E402
 
 MOLECULES = 867          # 2,601 atoms, box 29.6 A
@@ -116,6 +132,10 @@ PME_BWD_OPS = 38
 # Depth of the config-5 runs (its settings are models.combined's).
 C5_BLOCKS = 8
 C5_LARGE_BLOCKS = 2
+# Timed iterations of the 26k CFConv stack (models.schnet.periodic_stack)
+# and the atoms of the O(N^2) CFConv harness.
+CFCONV_ITERS = 2
+CFCONV_PAIR_ATOMS = 1000
 
 REPLACES = {
     'angular_aev_fwd': 'nnpops_tpu/ops/pallas_aev.py:614',
@@ -129,9 +149,11 @@ REPLACES = {
     # kernels of B.5; each entry names its kernel body.
     'pme_window_fwd': 'nnpops_tpu/ops/pallas_pme.py:177',
     'pme_window_bwd': 'nnpops_tpu/ops/pallas_pme.py:199',
+    'cfconv_bwd': 'nnpops_tpu/ops/pallas_cfconv.py:182',
 }
 SOURCES = {
     'angular_aev': 'nnpops_tpu_torch/csrc/angular_aev.cu',
+    'cfconv_bwd': 'nnpops_tpu_torch/csrc/cfconv_bwd.cu',
     'fused_nn': 'nnpops_tpu_torch/csrc/fused_nn.cu',
     'left_pack': 'nnpops_tpu_torch/csrc/left_pack.cu',
     'pme_window': 'nnpops_tpu_torch/csrc/pme_window.cu',
@@ -200,17 +222,20 @@ def check_normwise(name, got, want, rtol):
         raise AssertionError(f'{name}: max|diff| {err} > {rtol} * {scale}')
 
 
-def entry(name, source, err, kernel_fn, plain_fn, nbytes, ops, ops_per_s):
+def entry(name, source, err, kernel_fn, plain_fn, nbytes, ops, ops_per_s,
+          calls=20):
     """One kernel's JSON entry: ``ms`` the kernel's device time
-    (:func:`graph_ms`), ``event_ms`` the same calls launched eagerly (not in
-    the JSON line), ``plain_ms`` the plain version's; the bound is the
-    larger of the bytes over the memory rate and the operations over the
-    peak for their type."""
+    (:func:`graph_ms` over ``calls`` calls), ``event_ms`` the same calls
+    launched eagerly (not in the JSON line), ``plain_ms`` the plain
+    version's; the bound is the larger of the bytes over the memory rate
+    and the operations over the peak for their type."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return dict(name=name, route='cuda', source=SOURCES[source],
                 replaces=REPLACES[name], max_abs_err=err,
-                ms=graph_ms(kernel_fn), event_ms=cuda_ms(kernel_fn),
-                plain_ms=cuda_ms(plain_fn), bound_ms=1e3 * max(t_bytes, t_ops),
+                ms=graph_ms(kernel_fn, iters=calls),
+                event_ms=cuda_ms(kernel_fn, iters=calls),
+                plain_ms=cuda_ms(plain_fn, iters=calls),
+                bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations',
                 library_ms=None)
 
@@ -222,23 +247,6 @@ def merge(entries):
         out[key] = sum(e[key] for e in entries)
     out['max_abs_err'] = max(e['max_abs_err'] for e in entries)
     return out
-
-
-@contextlib.contextmanager
-def recording(module, name, calls):
-    """Wrap ``module.name`` so that every call's arguments are appended to
-    ``calls``; the wrapped function still runs."""
-    real = getattr(module, name)
-
-    def spy(*args, **kwargs):
-        calls.append((args, kwargs))
-        return real(*args, **kwargs)
-
-    setattr(module, name, spy)
-    try:
-        yield calls
-    finally:
-        setattr(module, name, real)
 
 
 def build(molecules, impl, basis):
@@ -833,6 +841,197 @@ def config5_phase(basis):
     return fwd, bwd
 
 
+# ---------------------------------------------------------------------------
+# SchNet / CFConv: the periodic 6-layer stack and the pair path.
+# ---------------------------------------------------------------------------
+
+def cfconv_pair_ops(width, gaussians):
+    """Operations per valid pair of the CFConv backward kernel, counted from
+    ``csrc/cfconv_bwd.cu`` (an FMA counts two): the four filter products
+    and the two weight-gradient outer products, 3 W^2 + 3 G W FMAs, plus
+    the Gaussians (11 G), the activation, its derivative and the d_y1 /
+    d_x / d_fc terms (18 W) and the cutoff (6)."""
+    return 2 * (3 * width * width + 3 * gaussians * width) \
+        + 11 * gaussians + 18 * width + 6
+
+
+def cfconv_bwd_check(label, args, cfg, chunk):
+    """The kernel against its plain version on one recorded call of
+    ``cfconv_bwd(params, dist, mask, idx, x, g, config, ...)``; normwise
+    gates: 1e-4 of the reference's scale on d_dist and d_x, 1e-3 on the
+    weight gradients (sums over every pair)."""
+    params, dist, mask, idx, x, g = args[:6]
+    got = cuda_cfconv.cfconv_bwd_cuda(params, dist, mask, idx, x, g, cfg)
+    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg,
+                                        chunk)
+    (gw, gd, gx), (ww, wd, wx) = got, want
+    for name, a, b, tol in ([('d_dist', gd, wd, 1e-4), ('d_x', gx, wx, 1e-4)]
+                            + [(f'd_{n}', a, b, 1e-3) for n, a, b in
+                               zip(('w1', 'b1', 'w2', 'b2'), gw, ww)]):
+        check_normwise(f'{label} cfconv bwd {name}', a, b, tol)
+    if bool(gd[~mask].any()):
+        raise AssertionError(f'{label}: nonzero d_dist on a masked lane')
+    err = max(max_abs(a, b) for a, b in zip((*gw, gd, gx), (*ww, wd, wx)))
+    print(f'{label} cfconv bwd rows {dist.shape[0]} lanes {dist.shape[1]} '
+          f'({cfg.activation}): max|d d_dist| {max_abs(gd, wd):.3g} (max '
+          f'{float(wd.abs().max()):.3g}), max|d d_x| {max_abs(gx, wx):.3g} '
+          f'(max {float(wx.abs().max()):.3g}), max|d dW| '
+          f'{max(max_abs(a, b) for a, b in zip(gw, ww)):.3g} (max '
+          f'{max(float(b.abs().max()) for b in ww):.3g})')
+    return err
+
+
+def cfconv_phase():
+    """Phase 8: the SchNet/CFConv path. (a) the CFConv backward kernel (B.6)
+    against its plain version on one layer's inputs of the 26,010-atom
+    stack, timed, plus one small call with the tanh activation; (b) the
+    stack (``models.schnet.periodic_stack``: select with mirror, distance
+    payload, 6 layers, gradients of the sum with respect to positions,
+    inputs and weights), 1 warm-up and 2 timed iterations, then one
+    iteration against the same iteration through the plain backward; (c)
+    the pair path, which has no kernel: config 2 and the O(N^2) harness.
+    Returns the kernel's entry with its launches from (b)."""
+    w = schnet_mod.periodic_stack(LARGE_MOLECULES * 3, device=DEV)
+    cfg = w.stack.config
+    cl = w.cell_list
+    print(f'cfconv stack: atoms {w.positions.shape[0]}, box '
+          f'{float(w.box[0, 0]):.2f} A, width {cfg.width}, {cfg.num_gaussians}'
+          f' Gaussians, cutoff {cfg.cutoff}, {w.stack.num_layers} layers, '
+          f'cells {cl.ncells} x {cl.cell_capacity}, capacity {cl.capacity}, '
+          f'chunk {w.chunk_size}')
+    if cl.ncells != (6, 6, 6) or cl.capacity != 640:
+        raise AssertionError('cfconv 26k: expected a 6x6x6 grid, K = 640')
+
+    # (b, warm-up) One iteration, recording the kernel's calls.
+    calls = []
+    with recording(cuda_cfconv, 'cfconv_bwd', calls):
+        schnet_mod.periodic_stack_grads(w)
+    if len(calls) != w.stack.num_layers:
+        raise AssertionError(f'cfconv_bwd called {len(calls)} times')
+
+    # (a) B.6 on the last layer's backward inputs (the first call).
+    # Detached: the saved inputs require grad, and the plain version would
+    # otherwise keep every chunk's intermediates for autograd.
+    params = tuple(a.detach() for a in calls[0][0][0])
+    args = (params,) + tuple(a.detach() for a in calls[0][0][1:6])
+    del calls
+    params, dist, mask, idx, x, g = args
+    err = cfconv_bwd_check('26k', args, cfg, w.chunk_size)
+    # A small call with the tanh activation: the first 37 rows, their
+    # lanes to other atoms masked out.
+    m37 = mask[:37] & (idx[:37] < 37)
+    err = max(err, cfconv_bwd_check(
+        'tanh', (params, torch.where(m37, dist[:37], 0.0), m37,
+                 torch.where(m37, idx[:37], 37), x[:37].contiguous(),
+                 g[:37].contiguous()),
+        dataclasses.replace(cfg, activation='tanh'), w.chunk_size))
+    pairs = int(mask.sum())
+    n, k = dist.shape
+    wd, ng = cfg.width, cfg.num_gaussians
+    size = ng * wd + wd + wd * wd + wd
+    # Every input read once (dist, mask, idx, x, g, weights, centers), every
+    # output written once (d_dist, d_x, the four weight gradients).
+    nbytes = n * k * (4 + 1 + 4) + 2 * 4 * n * wd + 4 * (size + ng) \
+        + 4 * n * k + 4 * n * wd + 4 * size
+    ops = pairs * cfconv_pair_ops(wd, ng)
+    # Two calls a measurement: one takes tens of milliseconds.
+    e = entry('cfconv_bwd', 'cfconv_bwd', err,
+              lambda: cuda_cfconv.cfconv_bwd_cuda(params, dist, mask, idx, x,
+                                                  g, cfg),
+              lambda: cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x,
+                                                   g, cfg, w.chunk_size),
+              nbytes, ops, F32_OPS_PER_S, calls=2)
+    del args, params, dist, mask, idx, x, g
+    print(f"cfconv_bwd: rows {n} lanes {k}, valid pairs {pairs}: kernel "
+          f"{e['ms']:.4f} ms (CUDA graph; eager {e['event_ms']:.4f} ms), "
+          f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+          f"({e['bound_by']}: {nbytes} bytes, {ops} operations), max|err| "
+          f"{err:.3g}")
+
+    # (b) The stack: 2 timed iterations, selection included.
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(CFCONV_ITERS):
+        value, d_pos, d_x, dw, sel = schnet_mod.periodic_stack_grads(w)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    ms = start.elapsed_time(end) / CFCONV_ITERS
+    max_nbr, max_occ = int(sel.max_neighbors), int(sel.max_cell_occupancy)
+    print(f'cfconv stack 26k: {CFCONV_ITERS} iterations, {ms:.3f} '
+          f'ms/iteration (CUDA events, selection included), max_neighbors '
+          f'{max_nbr} <= {cl.capacity}, max_cell_occupancy {max_occ} <= '
+          f'{cl.cell_capacity}, value {float(value):.6f}, launches {launches}')
+    if max_nbr > cl.capacity or max_occ > cl.cell_capacity:
+        raise AssertionError('cfconv 26k: selection overflow')
+    if not all(bool(torch.isfinite(t).all())
+               for t in (value, d_pos, d_x, *[a for p in dw for a in p])):
+        raise AssertionError('cfconv 26k: non-finite value or gradients')
+    if tuple(d_pos.shape) != tuple(w.positions.shape) or \
+            tuple(d_x.shape) != tuple(w.inputs.shape):
+        raise AssertionError('cfconv 26k: gradient shapes')
+    require_launches('cfconv', launches,
+                     {'cfconv_bwd': CFCONV_ITERS * w.stack.num_layers})
+    e['launches'] = launches['cfconv_bwd']
+    before = launches['cfconv_bwd']
+    p_value, p_pos, p_x, p_dw, _ = schnet_mod.periodic_stack_grads(w, True)
+    if _kernels.LAUNCHES['cfconv_bwd'] != before:
+        raise AssertionError('the plain iteration launched the kernel')
+    check_close('cfconv stack value', value, p_value, rtol=1e-5, atol=0.0)
+    check_normwise('cfconv stack d_positions', d_pos, p_pos, 1e-3)
+    check_normwise('cfconv stack d_inputs', d_x, p_x, 1e-3)
+    for i, (a, b) in enumerate(zip(dw, p_dw)):
+        for name, ga, gb in zip(('w1', 'b1', 'w2', 'b2'), a, b):
+            check_normwise(f'cfconv stack layer {i} d_{name}', ga, gb, 1e-3)
+    print(f'cfconv stack vs plain: value {float(value):.6f} vs '
+          f'{float(p_value):.6f}, max|d d_pos| {max_abs(d_pos, p_pos):.3g} '
+          f'(max {float(p_pos.abs().max()):.3g}), max|d d_x| '
+          f'{max_abs(d_x, p_x):.3g} (max {float(p_x.abs().max()):.3g})')
+    del w, d_pos, d_x, dw, p_pos, p_x, p_dw, sel
+
+    # (c) The pair path: config 2 and the O(N^2) harness.
+    rng = np.random.RandomState(0)
+    pos = torch.tensor(rng.rand(21, 3).astype(np.float32) * 6, device=DEV)
+    species = torch.tensor(rng.randint(0, 3, 21), dtype=torch.int32,
+                           device=DEV)
+    model = schnet_mod.SchNetModel(cfg, num_species=3, num_interactions=3)
+    sparams = model.init(torch.Generator(device=DEV).manual_seed(SEED + 1),
+                         device=DEV)
+    energy, forces = model.energy_and_forces(sparams, pos, species)
+    if not (torch.isfinite(energy) and bool(torch.isfinite(forces).all())
+            and tuple(forces.shape) == (21, 3)):
+        raise AssertionError('config 2: non-finite energy or forces')
+    print(f'config 2 (SchNet, 21 atoms, 3 interactions): E '
+          f'{float(energy):.4f}, max|F| {float(forces.abs().max()):.4f}')
+    n_pair = CFCONV_PAIR_ATOMS
+    side = (n_pair / 0.1) ** (1 / 3)
+    rng = np.random.RandomState(0)
+    pos = torch.tensor(rng.rand(n_pair, 3).astype(np.float32) * side,
+                       device=DEV)
+    x = torch.tensor(rng.randn(n_pair, cfg.width).astype(np.float32),
+                     device=DEV)
+    stack = schnet_mod.CFConvStack(cfg, num_layers=6)
+    sparams = stack.init(torch.Generator(device=DEV).manual_seed(SEED),
+                         device=DEV)
+
+    def harness():
+        p = pos.detach().requires_grad_(True)
+        xx = x.detach().requires_grad_(True)
+        out = stack(sparams, build_cfconv_neighbors(p, cfg.cutoff), xx).sum()
+        return (out.detach(), *torch.autograd.grad(out, (p, xx)))
+
+    value, d_pos, d_x = harness()
+    if not all(bool(torch.isfinite(t).all()) for t in (value, d_pos, d_x)):
+        raise AssertionError('O(N^2) harness: non-finite value or gradients')
+    print(f'cfconv O(N^2) harness ({n_pair} atoms, 6 layers, build + '
+          f'backprop): {cuda_ms(harness, iters=3, warmup=1):.3f} ms/iteration'
+          f' (CUDA events), value {float(value):.4f}')
+    return e
+
+
 def main():
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -866,6 +1065,7 @@ def main():
 
     window_large_phase(basis, params)
     kernels['pme_window_fwd'], kernels['pme_window_bwd'] = config5_phase(basis)
+    kernels['cfconv_bwd'] = cfconv_phase()
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')

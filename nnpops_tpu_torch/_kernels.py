@@ -23,12 +23,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / 'csrc'
 BUILD_DIR = Path(__file__).parent / '_build'
-SOURCES = ('angular_aev.cu', 'fused_nn.cu', 'left_pack.cu', 'pme_window.cu',
-           'window_radial.cu')
+SOURCES = ('angular_aev.cu', 'cfconv_bwd.cu', 'fused_nn.cu', 'left_pack.cu',
+           'pme_window.cu', 'window_radial.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
-LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0,
+LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0, 'cfconv_bwd': 0,
             'fused_nn_fwd': 0, 'fused_nn_fwdgrad': 0,
             'left_pack': 0, 'pme_window_fwd': 0, 'pme_window_bwd': 0,
             'window_radial_fwd': 0, 'window_radial_bwd': 0}
@@ -47,6 +47,9 @@ _SIGNATURES = {
     # the forward from n_rows on
     'angular_aev_bwd': (_P,) * 9 + (_I,) * 6 + (_P,) * 3
                        + (_D, _D, _D, _I, _P),
+    # dist, mask, idx, x, g, w1, b1, w2, b2, centers, d_dist, d_x, part, dw,
+    # n, k, width, g, nblocks, tanh, inv_gw, pi_rc, stream
+    'cfconv_bwd': (_P,) * 14 + (_I,) * 6 + (_D, _D, _P),
     # x, wbuf, fbuf, e_out, dx_out, n, in_actual, n_layers, dims, models,
     # stream
     'fused_nn_fwd': (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),

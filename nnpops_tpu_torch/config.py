@@ -3,7 +3,7 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``tests/test_torch_config.py`` holds the copies equal to the JAX package's,
-field by field. ``CFConvConfig`` comes with its slice.
+field by field.
 """
 from __future__ import annotations
 
@@ -127,6 +127,28 @@ ANI2X_LAYER_DIMS: Tuple[Tuple[int, ...], ...] = (
     (160, 128, 96),    # F
     (160, 128, 96),    # Cl
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class CFConvConfig:
+    """SchNet continuous-filter convolution configuration
+    (schnet/CFConv.h:125-137)."""
+    width: int
+    num_gaussians: int
+    cutoff: float
+    gaussian_width: float
+    activation: str = 'ssp'   # 'ssp' (shifted softplus) or 'tanh'
+
+    def __post_init__(self):
+        if self.activation not in ('ssp', 'tanh'):
+            raise ValueError("activation must be 'ssp' or 'tanh'")
+
+    @property
+    def gaussian_positions(self) -> np.ndarray:
+        """Gaussian centers uniformly spaced on [0, cutoff]
+        (CpuCFConv.cpp:121-122), float32."""
+        g = self.num_gaussians
+        return np.arange(g, dtype=np.float32) * (self.cutoff / (g - 1))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,8 +16,10 @@ capacities with the PME window occupancy and the spread-chunk count (the
 ``number_found_pairs`` pattern, getNeighborPairs.py:77-83); call between
 blocks of steps, on the host.
 
-The JAX class falls back to a pair path over ``CellList.build_payload``
-when no window plan fits the box; that needs ROADMAP A.6 and raises here.
+When no window plan fits the box (or none was planned), the PME direct
+term takes the JAX package's pair path: the half pairs of the ANI cell
+list's ``build_payload``, re-masked to the PME cutoff (which should not
+exceed the cell list's cutoff).
 """
 from __future__ import annotations
 
@@ -29,18 +31,13 @@ import torch
 
 from ..config import ANIBasis
 from ..geometry import validate_box
-from ..neighbors.cell_list import CellList
+from ..neighbors.cell_list import CellList, payload_to_half_pairs
 from ..ops.batched_nn import resolve_device
-from ..ops.pme import (PME, pme_reciprocal_energy, pme_self_energy,
-                       spread_capacity, spread_overflow)
+from ..ops.pme import (PME, pme_direct_energy, pme_reciprocal_energy,
+                       pme_self_energy, spread_capacity, spread_overflow)
 from .ani import ANIModel, ANIParams
 
 Tensor = torch.Tensor
-
-_PAIR_TODO = ('ANIWithPME without a PME window plan takes the JAX package\'s '
-              'pair path over CellList.build_payload (ROADMAP A.6, not '
-              'ported); create the model with ANIWithPME.create(..., '
-              'positions=, box=) on a box at least 3 PME cutoffs wide')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,10 +74,21 @@ class ANIWithPME:
         return self.ani.select(positions, box, cell_list)
 
     def _pme_direct(self, positions: Tensor, charges: Tensor, box: Tensor,
+                    cell_list: Optional[CellList] = None,
                     plain: bool = False) -> Tensor:
-        """The PME direct term through the window kernel (B.5)."""
+        """The PME direct term: the window kernel (B.5) with a plan, else
+        the pair path over ``cell_list``'s payload."""
         if self.pme_window_plan is None:
-            raise NotImplementedError(_PAIR_TODO)
+            if cell_list is None:
+                raise ValueError('without a PME window plan the direct term '
+                                 'takes its pairs from the cell list: pass '
+                                 'cell_list')
+            pairs = payload_to_half_pairs(
+                cell_list.build_payload(positions, box), self.pme_cutoff)
+            cfg = self.pme.config
+            return pme_direct_energy(positions, charges, pairs,
+                                     self.pme.exclusions, cfg.alpha,
+                                     cfg.coulomb)
         return self.pme.compute_direct_window(
             positions, charges, self.pme_cutoff, box, self.pme_window_plan,
             plain=plain)
@@ -94,8 +102,8 @@ class ANIWithPME:
                                         self.pme.moduli))
 
     def _pme_energy(self, positions: Tensor, charges: Tensor, box: Tensor,
-                    plain: bool = False) -> Tensor:
-        return (self._pme_direct(positions, charges, box, plain)
+                    cell_list, plain: bool = False) -> Tensor:
+        return (self._pme_direct(positions, charges, box, cell_list, plain)
                 + self._pme_reciprocal(positions, charges, box))
 
     def _energy(self, params, positions, charges, box, cell_list, sel,
@@ -103,7 +111,8 @@ class ANIWithPME:
         """``plain`` swaps every kernel, ANI's and B.5, for its plain
         PyTorch version (see :func:`plain_energy_and_forces`)."""
         e_ani = self.ani._energy(params, positions, box, cell_list, sel, plain)
-        return e_ani + self._pme_energy(positions, charges, box, plain)
+        return e_ani + self._pme_energy(positions, charges, box, cell_list,
+                                        plain)
 
     def energy_from_selection(self, params: ANIParams, positions: Tensor,
                               charges: Tensor, box: Tensor, cell_list,
@@ -133,7 +142,7 @@ class ANIWithPME:
     def energy(self, params: ANIParams, positions: Tensor, charges: Tensor,
                box: Tensor, cell_list) -> Tensor:
         e_ani = self.ani.energy_fused(params, positions, box, cell_list)
-        return e_ani + self._pme_energy(positions, charges, box)
+        return e_ani + self._pme_energy(positions, charges, box, cell_list)
 
     def energy_and_forces(self, params: ANIParams, positions: Tensor,
                           charges: Tensor, box: Tensor,

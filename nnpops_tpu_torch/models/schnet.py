@@ -1,0 +1,230 @@
+"""A SchNet model family on the CFConv op (port of
+``nnpops_tpu.models.schnet``).
+
+* :class:`CFConvStack`: the reference benchmark workload, one neighbor
+  build shared by L convolutions (BenchmarkCudaCFConv.cu:105-111), over
+  the half pair list (``__call__``), a cell-list payload
+  (``apply_payload``) or the (distances, indices, mask) triple of
+  ``CellList.payload_distances_from_selection`` (``apply_distances``, the
+  production path at large N).
+* :func:`periodic_stack` and :func:`periodic_stack_grads`: that production
+  path as the JAX package's ``bench_cfconv_periodic`` runs it (a 6-layer
+  stack at full width on a periodic box), which ``chip_smoke.py`` and
+  ``profile_step --impl cfconv`` drive.
+* :class:`SchNetModel`: a SchNet potential, species embedding ->
+  interaction blocks (atomwise dense, CFConv, atomwise dense + residual)
+  -> per-atom readout -> summed energy, forces by autograd.
+
+Parameters are plain NamedTuples of tensors in the JAX ``[in, out]``
+layout (``params.schnet_params_from_jax`` carries JAX weights across).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import CFConvConfig
+from ..neighbors.cell_list import CellList
+from ..neighbors.pairs import MaskedPairs
+from ..ops.batched_nn import resolve_device
+from ..ops.cfconv import (CFConvParams, build_cfconv_neighbors, cfconv,
+                          cfconv_from_payload, cfconv_masked, init_cfconv,
+                          shifted_softplus)
+
+Tensor = torch.Tensor
+
+
+class CFConvStack:
+    """L CFConv layers over one shared neighbor list (schnet/CFConv.h:
+    28-32, BenchmarkCudaCFConv.cu:105-111)."""
+
+    def __init__(self, config: CFConvConfig, num_layers: int = 6):
+        self.config = config
+        self.num_layers = num_layers
+
+    def init(self, generator: torch.Generator,
+             device=None) -> Tuple[CFConvParams, ...]:
+        return tuple(init_cfconv(generator, self.config, device=device)
+                     for _ in range(self.num_layers))
+
+    def __call__(self, params: Tuple[CFConvParams, ...],
+                 neighbors: MaskedPairs, inputs: Tensor) -> Tensor:
+        x = inputs
+        for p in params:
+            x = cfconv(p, neighbors, x, self.config)
+        return x
+
+    def apply_payload(self, params: Tuple[CFConvParams, ...], payload,
+                      inputs: Tensor, chunk_size=None, compute_dtype=None,
+                      custom_adjoint: bool = True) -> Tensor:
+        """The stack over a cell-list neighbor payload (one payload build
+        serves all layers; see ``ops.cfconv.cfconv_from_payload``)."""
+        x = inputs
+        for p in params:
+            x = cfconv_from_payload(p, payload, x, self.config, chunk_size,
+                                    compute_dtype=compute_dtype,
+                                    custom_adjoint=custom_adjoint)
+        return x
+
+    def apply_distances(self, params: Tuple[CFConvParams, ...],
+                        distances: Tensor, indices: Tensor, mask: Tensor,
+                        inputs: Tensor, chunk_size=None,
+                        compute_dtype=None, plain: bool = False) -> Tensor:
+        """The stack over an explicit (distances, indices, mask) triple:
+        with ``CellList.select(build_mirror=True)`` and
+        ``payload_distances_from_selection``, the scatter-free production
+        path at large N (the B.6 kernel runs each layer's backward; ``plain``
+        its plain version, on any device)."""
+        x = inputs
+        for p in params:
+            x = cfconv_masked(p, distances, mask, indices, x, self.config,
+                              chunk_size, compute_dtype=compute_dtype,
+                              plain=plain)
+        return x
+
+
+class PeriodicStack(NamedTuple):
+    """The periodic CFConv workload of the JAX package's
+    ``benchmarks/bench_components.py`` ``bench_cfconv_periodic``: a 6-layer
+    stack (width 128, 50 Gaussians, 10 A cutoff, ssp) on uniform random
+    positions at density 0.1 A^-3, with a cell list of capacity 640 (the
+    density estimate plus 30 %, rounded up to 128) and 2048-row chunks."""
+    stack: CFConvStack
+    params: Tuple[CFConvParams, ...]
+    cell_list: CellList
+    positions: Tensor
+    box: Tensor
+    inputs: Tensor
+    chunk_size: Optional[int]
+
+
+def periodic_stack(num_atoms: int, device=None, seed: int = 0
+                   ) -> PeriodicStack:
+    """Build :class:`PeriodicStack` at ``num_atoms``: positions and inputs
+    from ``np.random.RandomState(seed)`` in the JAX benchmark's order,
+    weights from a ``torch.Generator`` seeded with ``seed``, on ``device``
+    (the card unless the caller says otherwise)."""
+    dev = resolve_device(device)
+    cfg = CFConvConfig(width=128, num_gaussians=50, cutoff=10.0,
+                       gaussian_width=10.0 / 49)
+    stack = CFConvStack(cfg, num_layers=6)
+    gen = torch.Generator(device=dev if dev.type == 'cuda' else 'cpu')
+    params = stack.init(gen.manual_seed(seed), device=dev)
+    rng = np.random.RandomState(seed)
+    side = (num_atoms / 0.1) ** (1 / 3)
+    box = np.diag([side] * 3).astype(np.float32)
+    pos = rng.rand(num_atoms, 3).astype(np.float32) * side
+    x = rng.randn(num_atoms, cfg.width).astype(np.float32)
+    capacity = int(4 / 3 * np.pi * cfg.cutoff ** 3 * 0.1 * 1.3)
+    capacity = -(-capacity // 128) * 128
+    return PeriodicStack(
+        stack, params, CellList.create(box, cfg.cutoff, capacity=capacity),
+        torch.tensor(pos, device=dev), torch.tensor(box, device=dev),
+        torch.tensor(x, device=dev), 2048 if num_atoms > 4096 else None)
+
+
+def periodic_stack_grads(w: PeriodicStack, plain: bool = False):
+    """One iteration of the workload: ``select(build_mirror=True)``, the
+    scatter-free distance payload, the stack, and the gradient of the sum
+    of its output. Returns ``(value, d_positions, d_inputs, weight
+    gradients per layer, selection)``; ``plain`` runs every layer's
+    backward through its plain version."""
+    with torch.enable_grad():
+        pos = w.positions.detach().requires_grad_(True)
+        x = w.inputs.detach().requires_grad_(True)
+        params = [CFConvParams(*(a.detach().requires_grad_(True) for a in p))
+                  for p in w.params]
+        sel = w.cell_list.select(pos, w.box, build_mirror=True)
+        d, idx, m = w.cell_list.payload_distances_from_selection(pos, w.box,
+                                                                 sel)
+        value = w.stack.apply_distances(params, d, idx, m, x, w.chunk_size,
+                                        plain=plain).sum()
+        flat = [a for p in params for a in p]
+        grads = torch.autograd.grad(value, [pos, x] + flat)
+    dw = tuple(CFConvParams(*grads[2 + 4 * i:6 + 4 * i])
+               for i in range(len(params)))
+    return value.detach(), grads[0], grads[1], dw, sel
+
+
+class DenseParams(NamedTuple):
+    w: Tensor
+    b: Tensor
+
+
+class InteractionParams(NamedTuple):
+    atomwise_in: DenseParams     # width -> width (pre-conv mixing)
+    conv: CFConvParams
+    atomwise_out1: DenseParams   # width -> width, ssp
+    atomwise_out2: DenseParams   # width -> width (residual update)
+
+
+class SchNetParams(NamedTuple):
+    embedding: Tensor                    # [num_species, width]
+    interactions: Tuple[InteractionParams, ...]
+    readout1: DenseParams                # width -> width//2, ssp
+    readout2: DenseParams                # width//2 -> 1
+
+
+def _dense(p: DenseParams, x: Tensor) -> Tensor:
+    return x @ p.w + p.b
+
+
+@dataclasses.dataclass(frozen=True)
+class SchNetModel:
+    """SchNet potential: embedding + L interaction blocks + atomwise
+    readout."""
+    config: CFConvConfig
+    num_species: int
+    num_interactions: int = 3
+
+    def init(self, generator: torch.Generator, device=None) -> SchNetParams:
+        """Random parameters drawn with ``generator`` (fan-in scaled
+        normals, zero biases, a unit-normal embedding) on ``device`` (the
+        card unless the caller says otherwise)."""
+        dev = resolve_device(device)
+
+        def normal(*shape):
+            return torch.randn(*shape, generator=generator,
+                               device=generator.device).to(dev)
+
+        def dense(n_in, n_out):
+            return DenseParams(normal(n_in, n_out) / np.sqrt(n_in),
+                               torch.zeros(n_out, device=dev))
+
+        width = self.config.width
+        embedding = normal(self.num_species, width)
+        blocks = tuple(InteractionParams(
+            atomwise_in=dense(width, width),
+            conv=init_cfconv(generator, self.config, device=dev),
+            atomwise_out1=dense(width, width),
+            atomwise_out2=dense(width, width))
+            for _ in range(self.num_interactions))
+        return SchNetParams(embedding, blocks, dense(width, width // 2),
+                            dense(width // 2, 1))
+
+    def energy(self, params: SchNetParams, positions: Tensor,
+               species: Tensor, box: Optional[Tensor] = None,
+               max_num_pairs: int = -1) -> Tensor:
+        neighbors = build_cfconv_neighbors(positions, self.config.cutoff, box,
+                                           max_num_pairs)
+        x = params.embedding.index_select(0, species.long())
+        for block in params.interactions:
+            v = _dense(block.atomwise_in, x)
+            v = cfconv(block.conv, neighbors, v, self.config)
+            v = shifted_softplus(_dense(block.atomwise_out1, v))
+            v = _dense(block.atomwise_out2, v)
+            x = x + v                      # residual interaction update
+        h = shifted_softplus(_dense(params.readout1, x))
+        return torch.sum(_dense(params.readout2, h)[:, 0])
+
+    def energy_and_forces(self, params: SchNetParams, positions: Tensor,
+                          species: Tensor, box: Optional[Tensor] = None,
+                          max_num_pairs: int = -1) -> Tuple[Tensor, Tensor]:
+        with torch.enable_grad():
+            pos = positions.detach().requires_grad_(True)
+            e = self.energy(params, pos, species, box, max_num_pairs)
+            (grad,) = torch.autograd.grad(e, pos)
+        return e.detach(), -grad

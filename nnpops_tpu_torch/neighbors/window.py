@@ -26,11 +26,14 @@ Port notes:
 
 * The JAX selection builds mirror lists (``mir``, ``_mirror_packed``) and
   permutation-gather custom VJPs (``_perm_gather*``, ``_slot_pos_gather``,
-  ``_row_extract``) because XLA's scatter-add is slow on the TPU. The port
-  has none of them: every gather is an ``index_select`` and autograd takes
-  its adjoint (an atomic ``index_add``). Advanced indexing would take
-  PyTorch's sort-based accumulating backward, measured 70x slower on the
-  payload gather (``profile_step``).
+  ``_row_extract``) because XLA's scatter-add is slow on the TPU. The
+  window path has none of them: every gather is an ``index_select`` and
+  autograd takes its adjoint (an atomic ``index_add``). Advanced indexing
+  would take PyTorch's sort-based accumulating backward, measured 70x
+  slower on the payload gather (``profile_step``). ``_mirror_packed`` and
+  ``_perm_gather`` are here for the cell list's scatter-free distance
+  payload (``CellList.payload_distances_from_selection``, the CFConv path),
+  whose adjoint is deterministic and has no atomics.
 * The 27-cell stencil window is one ``index_select`` over the static slot
   id of every window lane (``_grid_device_tables``); its adjoint is
   autograd's ``index_add``. ``STENCIL_IMPL``/``MIRROR_IMPL`` of the JAX
@@ -861,3 +864,107 @@ def _expand_radial_rows(radial_rows: Tensor, angular: Tensor,
         else:
             pieces.append(radial_rows.new_zeros(radial_rows.shape[0], num_r))
     return torch.cat(pieces + [angular], 1)
+
+
+# ---------------------------------------------------------------------------
+# Mirror pairing and the permutation gather (the cell list's distance
+# payload, ``CellList.payload_distances_from_selection``).
+# ---------------------------------------------------------------------------
+
+def _mirror_packed(segments, cc: int,
+                   grid3: Optional[Tuple[int, int, int]] = None,
+                   c_per_cell: Optional[int] = None) -> Tuple[Tensor, ...]:
+    """Mirror indices in the packed tier-major flat space ([tier-0 rows x
+    K0 | tier-1 rows x K1 | ...]): for every valid directed entry
+    (slot s1 -> slot s2) the flat index of its reverse entry (s2 -> s1),
+    ``tot`` (the flat size) for invalid entries. ``segments``: per tier
+    (slot_rows [R_t], idx [R_t, K_t], mask [R_t, K_t]). int32 outputs, equal
+    to the JAX package's.
+
+    With ``grid3``/``c_per_cell`` (the slot space's cell grid and slots per
+    cell) each entry's key encodes the neighbor RELATIVE to the center's
+    27-cell stencil (slot * 27c + entry * c + slot offset, below 2^31 when
+    ``cc * 27c`` is), the unordered key q = min(forward, reverse) is
+    arithmetic (the reverse stencil entry is 26 - e), and one stable sort by
+    q lands the two directions of every pair adjacent; the partner is the
+    neighbor in the sorted order. The JAX package inverts that sorted order
+    with a second key-value sort (a TPU scatter is slow); here it is one
+    ``index_copy`` through the permutation, the same values. Without grid
+    information the pair keys (s1, s2) and (s2, s1) are sorted in int64
+    (the JAX package's uint32 keys, or its two-key sort where those
+    overflow, give the same order) and the two orders are matched rank by
+    rank.
+
+    Each valid entry's reverse must be present: a row that lost lanes to
+    overflow breaks the pairing (the soft failure its counts report)."""
+    shapes = [tuple(idx.shape) for _, idx, _ in segments]
+    sizes = [r * k for r, k in shapes]
+    tot = sum(sizes)
+    s1 = torch.cat([sr.long()[:, None].expand(idx.shape).reshape(-1)
+                    for sr, idx, _ in segments])
+    s2 = torch.cat([idx.long().reshape(-1) for _, idx, _ in segments])
+    valid = torch.cat([m.reshape(-1) for _, _, m in segments]) & (s1 <= cc)
+    use_rel = (grid3 is not None and c_per_cell is not None
+               and cc * 27 * c_per_cell < 2 ** 31 - 1)
+    if use_rel:
+        nx, ny, nz = (int(x) for x in grid3)
+        c = int(c_per_cell)
+        kk = 27 * c
+        s1c = torch.clamp(s1, max=cc - 1)   # clamp sentinels (masked anyway)
+        s2c = torch.clamp(s2, max=cc - 1)
+        c1, c2 = s1c // c, s2c // c
+        so1, so2 = s1c - c1 * c, s2c - c2 * c
+
+        def axis_off(a1, a2, na):
+            d = (a2 - a1 + 1) % na          # 0 -> -1, 1 -> 0, 2 -> +1
+            return torch.where(d > 2, 1, d)  # na-1 aliases never occur (na>=3)
+
+        e = (axis_off(c1 // (ny * nz), c2 // (ny * nz), nx) * 9
+             + axis_off((c1 // nz) % ny, (c2 // nz) % ny, ny) * 3
+             + axis_off(c1 % nz, c2 % nz, nz))   # stencil entry of s2 in s1's
+        q = torch.minimum(s1c * kk + e * c + so2, s2c * kk + (26 - e) * c + so1)
+        qv = torch.where(valid, q, 2 ** 31 - 1)
+        if tot % 2:                         # adjacent pairing needs even
+            qv = torch.cat([qv, qv.new_full((1,), 2 ** 31 - 1)])
+        fs = torch.sort(qv, stable=True).indices
+        partner = fs.reshape(-1, 2).flip(1).reshape(-1)
+        mir = torch.empty_like(fs).index_copy_(0, fs, partner)[:tot]
+        mir = torch.where(valid, torch.clamp(mir, max=tot), tot)
+    else:
+        base = cc + 2
+        big = base * base
+        v1 = torch.sort(torch.where(valid, s1 * base + s2, big),
+                        stable=True).indices
+        v2 = torch.sort(torch.where(valid, s2 * base + s1, big),
+                        stable=True).indices
+        # mir[v1[k]] = v2[k]: v1 is a permutation, so this is exact.
+        mir = torch.empty_like(v1).index_copy_(0, v1, v2)
+        mir = torch.where(valid, mir, tot)
+    mir = mir.to(torch.int32)
+    out, off = [], 0
+    for (r, k), sz in zip(shapes, sizes):
+        out.append(mir[off:off + sz].reshape(r, k))
+        off += sz
+    return tuple(out)
+
+
+class _PermGather(torch.autograd.Function):
+    """``x[perm]`` for a PERMUTATION ``perm``; the adjoint is the gather
+    ``g[inv_perm]`` (itself a ``_PermGather``, so any order), not an
+    ``index_add``."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(perm, inv_perm)
+        return x.index_select(0, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, inv_perm = ctx.saved_tensors
+        return _PermGather.apply(g, inv_perm, perm), None, None
+
+
+def _perm_gather(x: Tensor, perm: Tensor, inv_perm: Tensor) -> Tensor:
+    """``x[perm]`` along dim 0 for a permutation ``perm`` with inverse
+    ``inv_perm``, its adjoint a gather through ``inv_perm``."""
+    return _PermGather.apply(x, perm, inv_perm)

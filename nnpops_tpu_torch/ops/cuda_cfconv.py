@@ -1,0 +1,265 @@
+"""The CFConv backward kernel (``csrc/cfconv_bwd.cu``, B.6), its wrapper and
+plain PyTorch version, and the payload conv's autograd Function (port of
+``nnpops_tpu/ops/cfconv.py`` ``_make_payload_conv`` and of
+``nnpops_tpu/ops/pallas_cfconv.py``).
+
+The conv runs over an explicit neighbor triple: ``dist [N, K]`` (exact
+zeros on masked lanes), ``mask [N, K]`` bool and ``idx [N, K]`` int32
+(``N`` on masked lanes), inputs ``x [N, W]``, filter weights ``w1 [G, W]``,
+``b1 [W]``, ``w2 [W, W]``, ``b2 [W]`` (the JAX ``[in, out]`` layout):
+
+* forward (plain PyTorch, chunked over atom rows as the JAX ``_fwd_rows``;
+  the two filter products go to ``torch.matmul`` in true f32, as JAX left
+  them to XLA): ``out[i] = sum_l y2[i, l] * x[idx[i, l]]`` with the filter
+  ``y2 = (act(gauss(d) w1 + b1) w2 + b2) * fc(d)``;
+* backward, recomputing the filter: the four weight gradients, the
+  distance cotangent and the input-gradient rows by self-adjointness
+  (``d_x[i] = sum_l y2[i, l] * g[idx[i, l]]``, exact when the directed
+  list holds both directions of every pair).
+
+Dispatch of the backward: a CPU tensor runs :func:`cfconv_bwd_plain`, the
+JAX ``_bwd_rows`` chunk algebra; a CUDA tensor launches the kernel, once
+over all N rows, or raises. Validity is the mask (the JAX default XLA
+backward), not the Pallas kernel's ``dist > 0``: the two differ only for
+coincident atoms. The JAX package's ``bwd_impl`` selector and the Pallas
+constraints behind its silent fallback (K a multiple of 128, rows of 16)
+are TPU matters: the kernel takes any K and row count.
+
+``compute_dtype=torch.bfloat16`` rounds the filter products' operands to
+bf16 with f32 accumulation (the JAX option) in the forward and the plain
+backward; the kernel computes in f32, as the Pallas kernel does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from .. import _kernels
+from ..config import CFConvConfig
+from .aev_blocked import device_constant
+
+Tensor = torch.Tensor
+
+_LN2 = float(np.log(2.0))
+MAX_GAUSSIANS = 64            # csrc/cfconv_bwd.cu limits
+WIDTHS = (32, 64, 128)
+
+
+def _mm(a: Tensor, b: Tensor, dtype) -> Tensor:
+    """``a @ b`` with f32 accumulation; ``dtype`` rounds the operands."""
+    if dtype is None:
+        return a @ b
+    return a.to(dtype).float() @ b.to(dtype).float()
+
+
+def filter_fwd(params, d: Tensor, m: Tensor, config: CFConvConfig, dtype):
+    """The filter pipeline on ``[B, K]`` rows: (u, gauss, h, act, y1, fc,
+    y2)."""
+    w1, b1, w2, b2 = params
+    centers = device_constant(tuple(float(c) for c in
+                                    config.gaussian_positions),
+                              torch.float32, d.device)
+    u = (d[..., None] - centers) / config.gaussian_width
+    gauss = torch.exp(-0.5 * u * u)                           # [B, K, G]
+    h = _mm(gauss, w1, dtype) + b1
+    if config.activation == 'ssp':
+        act = torch.nn.functional.softplus(h) - _LN2
+    else:
+        act = torch.tanh(h)
+    y1 = _mm(act, w2, dtype) + b2                             # [B, K, W]
+    pi_rc = math.pi / config.cutoff
+    fc = torch.where(m, 0.5 * torch.cos(pi_rc * d) + 0.5, 0.0)
+    return u, gauss, h, act, y1, fc, y1 * fc[..., None]
+
+
+def _gather_rows(table: Tensor, i: Tensor) -> Tensor:
+    """``table[i]`` for ``i [B, K]`` -> ``[B, K, W]`` (an ``index_select``)."""
+    return table.index_select(0, i.reshape(-1)).reshape(*i.shape, -1)
+
+
+def _pad_row(x: Tensor) -> Tensor:
+    return torch.cat([x, x.new_zeros(1, x.shape[1])])
+
+
+def _row_chunks(n: int, chunk_size: Optional[int]):
+    """Row slices of at most ``chunk_size`` rows (one slice without)."""
+    b = max(1, n if chunk_size is None or n <= chunk_size else int(chunk_size))
+    return [slice(s, min(s + b, n)) for s in range(0, max(n, 1), b)]
+
+
+def conv_fwd_plain(params, dist: Tensor, mask: Tensor, idx: Tensor,
+                   x: Tensor, config: CFConvConfig,
+                   chunk_size: Optional[int] = None, dtype=None) -> Tensor:
+    """The conv's value, chunked over atom rows."""
+    x_pad = _pad_row(x)
+    out = []
+    for s in _row_chunks(x.shape[0], chunk_size):
+        y2 = filter_fwd(params, dist[s], mask[s], config, dtype)[-1]
+        # The neighbor gather stays f32 (compute_dtype routes only the
+        # filter products, as in the JAX package).
+        out.append(torch.sum(y2 * _gather_rows(x_pad, idx[s]), 1))
+    return torch.cat(out)
+
+
+def _bwd_rows(params, d, m, i, x_pad, g_pad, gc, config, dtype):
+    """One chunk of the backward (the JAX ``_bwd_rows``): (dW partials,
+    d_dist rows, d_x rows)."""
+    w1, b1, w2, b2 = params
+    u, gauss, h, act, y1, fc, y2 = filter_fwd(params, d, m, config, dtype)
+    bk = d.shape[0] * d.shape[1]
+    w = y1.shape[-1]
+    xg = _gather_rows(x_pad, i)                                 # [B, K, W]
+    gg = _gather_rows(g_pad, i)
+    d_x_rows = torch.sum(y2 * gg, 1)                            # [B, W]
+    d_y2 = gc[:, None, :] * xg
+    d_y1 = d_y2 * fc[..., None]
+    d_fc = torch.sum(d_y2 * y1, -1)                             # [B, K]
+    d2 = d_y1.reshape(bk, w)
+    d_w2 = _mm(act.reshape(bk, w).t(), d2, dtype)
+    d_b2 = torch.sum(d2, 0)
+    d_act = _mm(d2, w2.t(), dtype).reshape(h.shape)
+    if config.activation == 'ssp':
+        d_h = d_act * torch.sigmoid(h)
+    else:
+        d_h = d_act * (1.0 - act * act)
+    dh2 = d_h.reshape(bk, w)
+    d_w1 = _mm(gauss.reshape(bk, -1).t(), dh2, dtype)
+    d_b1 = torch.sum(dh2, 0)
+    d_gauss = _mm(dh2, w1.t(), dtype).reshape(gauss.shape)
+    gw = config.gaussian_width
+    pi_rc = math.pi / config.cutoff
+    d_d = torch.sum(d_gauss * gauss * (-u / gw), -1)
+    d_d = d_d + d_fc * torch.where(m, -0.5 * pi_rc * torch.sin(pi_rc * d),
+                                   0.0)
+    return ((d_w1, d_b1, d_w2, d_b2), torch.where(m, d_d, 0.0), d_x_rows)
+
+
+def cfconv_bwd_plain(params, dist: Tensor, mask: Tensor, idx: Tensor,
+                     x: Tensor, g: Tensor, config: CFConvConfig,
+                     chunk_size: Optional[int] = None, dtype=None):
+    """Plain version of the kernel: ``((dW1, db1, dW2, db2), d_dist, d_x)``,
+    chunked over atom rows, weight gradients summed in chunk order."""
+    x_pad, g_pad = _pad_row(x), _pad_row(g)
+    dw, d_dist, d_x = None, [], []
+    for s in _row_chunks(x.shape[0], chunk_size):
+        pw, dd, dx = _bwd_rows(params, dist[s], mask[s], idx[s], x_pad,
+                               g_pad, g[s], config, dtype)
+        dw = pw if dw is None else tuple(a + b for a, b in zip(dw, pw))
+        d_dist.append(dd)
+        d_x.append(dx)
+    return dw, torch.cat(d_dist), torch.cat(d_x)
+
+
+def check_kernel_config(config: CFConvConfig) -> None:
+    """Raise unless the kernel takes this width and Gaussian count."""
+    if config.width not in WIDTHS or not 1 <= config.num_gaussians <= MAX_GAUSSIANS:
+        raise ValueError(f'the CFConv backward kernel takes width in {WIDTHS}'
+                         f' and 1..{MAX_GAUSSIANS} Gaussians, got width '
+                         f'{config.width}, {config.num_gaussians} Gaussians')
+
+
+def _num_blocks(device, n: int) -> int:
+    """One block per SM (fixed for a device, so the weight-gradient sum
+    order is too)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(n, sms))
+
+
+def cfconv_bwd_cuda(params, dist: Tensor, mask: Tensor, idx: Tensor,
+                    x: Tensor, g: Tensor, config: CFConvConfig):
+    """Launch the kernel (and its partial-sum reduction) over all rows:
+    ``((dW1, db1, dW2, db2), d_dist, d_x)``."""
+    check_kernel_config(config)
+    w1, b1, w2, b2 = params
+    n, k = dist.shape
+    wd, ng = config.width, config.num_gaussians
+    shapes = ((dist, (n, k), torch.float32), (mask, (n, k), torch.bool),
+              (idx, (n, k), torch.int32), (x, (n, wd), torch.float32),
+              (g, (n, wd), torch.float32), (w1, (ng, wd), torch.float32),
+              (b1, (wd,), torch.float32), (w2, (wd, wd), torch.float32),
+              (b2, (wd,), torch.float32))
+    for t, shape, dtype in shapes:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f'expected {dtype} {shape}, got {t.dtype} '
+                             f'{tuple(t.shape)}')
+    _kernels.require_cuda(*(t for t, _, _ in shapes))
+    dev = dist.device
+    centers = device_constant(tuple(float(c) for c in
+                                    config.gaussian_positions),
+                              torch.float32, dev)
+    nblocks = _num_blocks(dev, n)
+    size = ng * wd + wd + wd * wd + wd
+    d_dist = torch.empty_like(dist)
+    d_x = torch.empty_like(x)
+    part = torch.empty(nblocks, size, dtype=torch.float32, device=dev)
+    dw = torch.empty(size, dtype=torch.float32, device=dev)
+    _kernels.launch(
+        'cfconv_bwd', dist.data_ptr(), mask.data_ptr(), idx.data_ptr(),
+        x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), centers.data_ptr(), d_dist.data_ptr(),
+        d_x.data_ptr(), part.data_ptr(), dw.data_ptr(), n, k, wd, ng,
+        nblocks, int(config.activation == 'tanh'),
+        1.0 / config.gaussian_width, math.pi / config.cutoff,
+        _kernels.stream_handle(dev))
+    o1, o2 = ng * wd, ng * wd + wd
+    o3 = o2 + wd * wd
+    return ((dw[:o1].reshape(ng, wd), dw[o1:o2], dw[o2:o3].reshape(wd, wd),
+             dw[o3:]), d_dist, d_x)
+
+
+def cfconv_bwd(params, dist: Tensor, mask: Tensor, idx: Tensor, x: Tensor,
+               g: Tensor, config: CFConvConfig,
+               chunk_size: Optional[int] = None, dtype=None):
+    """The conv's backward: the kernel on a CUDA tensor (one launch over
+    all rows, f32), :func:`cfconv_bwd_plain` on a CPU tensor."""
+    if dist.device.type == 'cpu':
+        return cfconv_bwd_plain(params, dist, mask, idx, x, g, config,
+                                chunk_size, dtype)
+    if dist.device.type != 'cuda':
+        raise ValueError(f'no CFConv backward kernel for device {dist.device}')
+    return cfconv_bwd_cuda(tuple(p.contiguous() for p in params),
+                           dist.contiguous(), mask.contiguous(),
+                           idx.to(torch.int32).contiguous(), x.contiguous(),
+                           g.contiguous(), config)
+
+
+class PayloadConv(torch.autograd.Function):
+    """The payload conv: plain chunked forward, recompute-based backward
+    through :func:`cfconv_bwd` (only the inputs are saved). Returns
+    cotangents for w1/b1/w2/b2, the distances and the inputs. First
+    order."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, dist, mask, idx, x, config, chunk_size,
+                dtype, plain):
+        params = (w1, b1, w2, b2)
+        ctx.save_for_backward(w1, b1, w2, b2, dist, mask, idx, x)
+        ctx.spec = (config, chunk_size, dtype)
+        ctx.plain = plain
+        return conv_fwd_plain(params, dist, mask, idx, x, config, chunk_size,
+                              dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        w1, b1, w2, b2, dist, mask, idx, x = ctx.saved_tensors
+        bwd = cfconv_bwd_plain if ctx.plain else cfconv_bwd
+        dw, d_dist, d_x = bwd((w1, b1, w2, b2), dist, mask, idx, x,
+                              g.contiguous(), *ctx.spec)
+        return (*dw, d_dist, None, None, d_x, None, None, None, None)
+
+
+def payload_conv(params, dist: Tensor, mask: Tensor, idx: Tensor, x: Tensor,
+                 config: CFConvConfig, chunk_size: Optional[int] = None,
+                 dtype=None, plain: bool = False) -> Tensor:
+    """The payload conv with the hand-written backward (see the module
+    doc); ``params`` is ``(w1, b1, w2, b2)``. ``plain`` runs the backward's
+    plain version on any device (the reference a run through the kernel is
+    held against on the card)."""
+    w1, b1, w2, b2 = params
+    return PayloadConv.apply(w1, b1, w2, b2, dist, mask, idx, x, config,
+                             chunk_size, dtype, plain)

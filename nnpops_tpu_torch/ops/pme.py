@@ -27,8 +27,9 @@ Port notes:
   pmeCPU.cpp:324-343) and the FFT, so the pair path and the reciprocal term
   have derivatives of any order in positions and charges. The window
   direct path (``ops.cuda_pme``) is first-order, as the Pallas VJP is.
-* ``compute_direct(cell_list=...)`` needs ``CellList.build_payload``
-  (ROADMAP A.6, not ported) and raises.
+* ``compute_direct(cell_list=...)`` takes its half pairs from
+  ``CellList.build_payload`` (``neighbors.cell_list.payload_to_half_pairs``)
+  as the JAX package does; autograd differentiates through the payload.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import torch
 
 from ..config import PMEConfig
 from ..geometry import box_transform, invert_box, validate_box
+from ..neighbors.cell_list import payload_to_half_pairs
 from ..neighbors.pairs import MaskedPairs, neighbor_pairs_masked
 from .aev_blocked import device_constant
 from .batched_nn import resolve_device
@@ -330,19 +332,25 @@ class PME:
     def compute_direct(self, positions: Tensor, charges: Tensor,
                        cutoff: float, box_vectors: Tensor,
                        max_num_pairs: int = -1, cell_list=None) -> Tensor:
-        """Direct-space energy over the O(N^2) pair list (pme.py:131-165).
-        ``cell_list`` (the JAX package's O(N) payload route) needs
-        ``CellList.build_payload``, ROADMAP A.6, and raises."""
+        """Direct-space energy (pme.py:131-165) over the O(N^2) pair list,
+        or with ``cell_list`` (a ``neighbors.cell_list.CellList`` created
+        with a cutoff of at least ``cutoff``) over the O(N) half pairs of
+        its payload, re-masked to ``cutoff``. Overflow of the cell list's
+        capacities stays observable through its payload counts (build one
+        to check), the same soft-failure contract."""
         self._check(positions, charges)
         if cutoff <= 0:
             raise ValueError('cutoff must be positive')
         if cell_list is not None:
-            raise NotImplementedError(
-                'compute_direct(cell_list=...) needs CellList.build_payload '
-                '(ROADMAP A.6, not ported); use the pair list or the window '
-                'path (plan_direct_window / compute_direct_window)')
-        pairs = neighbor_pairs_masked(positions, cutoff, max_num_pairs,
-                                      box_vectors)
+            if cell_list.cutoff < cutoff:
+                raise ValueError(f'cell_list cutoff {cell_list.cutoff} < PME '
+                                 f'cutoff {cutoff}')
+            validate_box(box_vectors, cutoff)
+            pairs = payload_to_half_pairs(
+                cell_list.build_payload(positions, box_vectors), cutoff)
+        else:
+            pairs = neighbor_pairs_masked(positions, cutoff, max_num_pairs,
+                                          box_vectors)
         return pme_direct_energy(positions, charges, pairs, self.exclusions,
                                  self.config.alpha, self.config.coulomb)
 

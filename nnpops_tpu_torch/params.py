@@ -10,7 +10,12 @@ tuples: ``(ensemble, self_energies)`` with ``ensemble = (networks,)`` and
 numpy directly: that module's ``load_ensemble_npz`` builds JAX arrays, and
 this package runs where JAX is not installed.
 
-Both put the tensors on the CUDA card unless ``device`` says otherwise
+``cfconv_params_from_jax`` and ``schnet_params_from_jax`` take the JAX
+package's ``CFConvParams`` and ``SchNetParams`` trees the same way (numpy
+leaves, or the same structure as plain tuples) and keep its ``[in, out]``
+weight layout.
+
+All put the tensors on the CUDA card unless ``device`` says otherwise
 (``device='cpu'``).
 """
 from __future__ import annotations
@@ -19,7 +24,9 @@ import numpy as np
 import torch
 
 from .models.ani import ANIParams
+from .models.schnet import (DenseParams, InteractionParams, SchNetParams)
 from .ops.batched_nn import EnsembleParams, SpeciesNet, resolve_device
+from .ops.cfconv import CFConvParams
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -58,3 +65,26 @@ def from_npz(path: str, device=None) -> ANIParams:
         sae = (data['self_energies'] if 'self_energies' in data
                else np.zeros(ns, np.float32))
         return ANIParams(EnsembleParams(tuple(nets)), _tensor(sae, device))
+
+
+def cfconv_params_from_jax(tree, device=None) -> CFConvParams:
+    """JAX ``CFConvParams`` (w1, b1, w2, b2; numpy leaves) -> the port's."""
+    device = resolve_device(device)
+    return CFConvParams(*(_tensor(a, device) for a in tree))
+
+
+def schnet_params_from_jax(tree, device=None) -> SchNetParams:
+    """JAX ``SchNetParams`` (embedding, interactions, readout1, readout2;
+    numpy leaves) -> the port's."""
+    device = resolve_device(device)
+    embedding, interactions, readout1, readout2 = tree
+
+    def dense(p):
+        return DenseParams(*(_tensor(a, device) for a in p))
+
+    blocks = tuple(InteractionParams(
+        atomwise_in=dense(b[0]), conv=cfconv_params_from_jax(b[1], device),
+        atomwise_out1=dense(b[2]), atomwise_out2=dense(b[3]))
+        for b in interactions)
+    return SchNetParams(_tensor(embedding, device), blocks, dense(readout1),
+                        dense(readout2))

@@ -28,6 +28,18 @@ builds it, margin 1.2), and measures, in one process:
    before any profiler session), and under ``torch.profiler`` device
    kernel time and kernels per call, which split the step's.
 
+``--impl cfconv`` measures the SchNet/CFConv path instead: one iteration
+of the 26,010-atom 6-layer CFConv stack of ``chip_smoke.py`` phase 8
+(``models.schnet.periodic_stack_grads``: select with mirror, distance
+payload, 6 layers, gradients of the sum), its CUDA-event time (3 runs)
+and under ``torch.profiler`` its device kernel time, device kernels and
+busy share (device time over the median event time), then each part
+alone, CUDA-event time and device time and kernels under the profiler:
+the selection with the mirror, the distance payload, the 6 forwards
+(no grad), the 6 backward kernels (B.6) on the inputs recorded from an
+iteration, and the mirror position adjoint (a random cotangent on the
+valid lanes).
+
 Prints one JSON object as its last line; with ``--out-dir`` also writes
 the profiler's kernel table and a Chrome trace there. Run from the
 repository root on a machine with a CUDA GPU:
@@ -37,6 +49,7 @@ repository root on a machine with a CUDA GPU:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import statistics
@@ -48,9 +61,12 @@ import torch
 from . import ANIBasis, _kernels
 from .models.ani import ANIModel, init_ani_params
 from .models.combined import C5_SELF_ENERGIES, config5
+from .models.schnet import periodic_stack, periodic_stack_grads
+from .ops import cuda_cfconv
 from .utils import make_water_box
 
 MOLECULES = 867
+CFCONV_ATOMS = 26010
 STEPS = 8
 REPEATS = 3
 SEED = 0
@@ -125,9 +141,103 @@ def _combined_parts(ff, params, pos, charges, box, cell_list, sel):
     }
 
 
+def _cfconv(dev, card, out_dir):
+    """``--impl cfconv``: one iteration of the 26k CFConv stack and its
+    parts (see the module doc)."""
+    w = periodic_stack(CFCONV_ATOMS, device=dev)
+    cl, box = w.cell_list, w.box
+    _kernels.library()
+    calls = []
+    with recording(cuda_cfconv, 'cfconv_bwd', calls):
+        periodic_stack_grads(w)
+    # Detached: the saved inputs require grad.
+    bwd_args = [(tuple(a.detach() for a in c[0]),
+                 *(a.detach() for a in c[1:6]), *c[6:]) for c, _ in calls]
+    del calls
+    pos = w.positions.detach().requires_grad_(True)
+    sel = cl.select(pos, box, build_mirror=True)
+    d, idx, m = cl.payload_distances_from_selection(pos, box, sel)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cot = torch.where(m, torch.randn(d.shape, device=dev, generator=gen),
+                      0.0)
+
+    def forwards():
+        with torch.no_grad():
+            return w.stack.apply_distances(w.params, d, idx, m, w.inputs,
+                                           w.chunk_size)
+
+    def backwards():
+        return [cuda_cfconv.cfconv_bwd(*a) for a in bwd_args]
+
+    parts = {
+        'select': lambda: cl.select(pos, box, build_mirror=True),
+        'distance_payload': lambda: cl.payload_distances_from_selection(
+            pos, box, sel),
+        'forwards': forwards,
+        'backwards': backwards,
+        'mirror_adjoint': lambda: torch.autograd.grad(d, pos, cot,
+                                                      retain_graph=True),
+    }
+    iteration = lambda: periodic_stack_grads(w)  # noqa: E731
+    res = {'card': card, 'impl': 'cfconv', 'atoms': CFCONV_ATOMS,
+           'layers': w.stack.num_layers, 'capacity': cl.capacity,
+           'max_neighbors': int(sel.max_neighbors),
+           'valid_pairs': int(m.sum())}
+    iteration()
+    res['iteration_ms_events'] = [_event_ms(iteration, 1)
+                                  for _ in range(REPEATS)]
+    res['parts'] = {}
+    for name, fn in parts.items():
+        fn()
+        res['parts'][name] = {'ms_events': _event_ms(fn, 2)}
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _host_ms(iteration, 1)
+    kernels = _kernel_events(prof)
+    device_ms = sum(us for _, us in kernels) / 1e3
+    res['device_kernel_ms'] = device_ms
+    res['device_kernels'] = len(kernels)
+    res['busy_share'] = device_ms / statistics.median(
+        res['iteration_ms_events'])
+    for name, fn in parts.items():
+        part_ms, part_kernels = _profile(fn, 1)
+        res['parts'][name].update(
+            device_kernel_ms=part_ms, kernels=part_kernels,
+            share_of_iteration_device_ms=part_ms / device_ms)
+    res['launches_per_iteration'] = len(bwd_args)
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / 'kernels.txt').write_text(
+            prof.key_averages().table(sort_by='self_cuda_time_total',
+                                      row_limit=40))
+        prof.export_chrome_trace(str(out_dir / 'iteration_trace.json'))
+    print(json.dumps(res))
+    return res
+
+
+@contextlib.contextmanager
+def recording(module, name, calls):
+    """Wrap ``module.name`` so that every call's ``(args, kwargs)`` is
+    appended to ``calls``; the wrapped function still runs."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--impl', choices=('window', 'pallas', 'combined'),
+    ap.add_argument('--impl', choices=('window', 'pallas', 'combined',
+                                       'cfconv'),
                     default='window')
     ap.add_argument('--out-dir', type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
@@ -138,6 +248,8 @@ def main(argv=None):
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
+    if args.impl == 'cfconv':
+        return _cfconv(dev, card, args.out_dir)
 
     water = make_water_box(MOLECULES, seed=SEED)
     basis = ANIBasis.ani2x()

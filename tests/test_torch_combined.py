@@ -142,10 +142,35 @@ def test_forces_match_finite_differences(system):
 
 
 def test_without_window_plan_raises(system):
+    """Without a PME window plan the direct term takes the pair path over
+    the ANI cell list's payload, as in the JAX package: the PME energy and
+    its position gradient against JAX's same route (rtol 1e-5; gradient
+    within 1e-4 of its scale), and the force step against the window-plan
+    step (energy rtol 1e-5, forces within 2e-5 of their scale). A model
+    without a plan needs the cell list: without one it raises."""
     s = system
     ff = ANIWithPME(ani=s['tff'].ani, pme=s['tff'].pme, pme_cutoff=5.0)
-    with pytest.raises(NotImplementedError, match='A.6'):
-        ff.energy_from_selection(s['tp'], *s['targs'], s['tcl'], s['tsel'])
+    jff = JANIWithPME(ani=s['jff'].ani, pme=s['jff'].pme, pme_cutoff=5.0)
+    jpos, jq, jbox = s['jargs']
+    je, jg = jax.jit(jax.value_and_grad(
+        lambda p: jff._pme_energy(p, jq, jbox, s['jcl'])))(jpos)
+    pos, q, box = s['targs']
+    p = pos.clone().requires_grad_(True)
+    te = ff._pme_energy(p, q, box, s['tcl'])
+    (tg,) = torch.autograd.grad(te, p)
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(float(te), float(je), rtol=1e-5)
+    np.testing.assert_allclose(tg.numpy(), jg, rtol=0,
+                               atol=1e-4 * np.abs(jg).max())
+    e_pairs, f_pairs = ff.energy_and_forces_from_selection(
+        s['tp'], pos, q, box, s['tcl'], s['tsel'])
+    e_window, f_window = s['tff'].energy_and_forces_from_selection(
+        s['tp'], pos, q, box, s['tcl'], s['tsel'])
+    np.testing.assert_allclose(float(e_pairs), float(e_window), rtol=1e-5)
+    np.testing.assert_allclose(f_pairs.numpy(), f_window.numpy(), rtol=0,
+                               atol=2e-5 * float(f_window.abs().max()))
+    with pytest.raises(ValueError, match='cell_list'):
+        ff._pme_direct(pos, q, box)
 
 
 def test_config5_builder_matches_jax_example(system):

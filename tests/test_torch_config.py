@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's numpy-only modules (the ANI
-basis and constants, the water builders) against the originals, and the
-port's device defaults."""
+basis and constants, the PME and CFConv configurations, the water
+builders) against the originals, and the port's device defaults."""
 import dataclasses
 
 import numpy as np
@@ -59,6 +59,24 @@ def test_pme_config_equals_jax():
         with pytest.raises(ValueError) as j_err:
             jconfig.PMEConfig(*bad)
         assert str(t_err.value) == str(j_err.value)
+
+
+@pytest.mark.parametrize('activation', ['ssp', 'tanh'])
+def test_cfconv_config_equals_jax(activation):
+    assert [f.name for f in dataclasses.fields(tconfig.CFConvConfig)] == [
+        f.name for f in dataclasses.fields(jconfig.CFConvConfig)]
+    args = dict(width=128, num_gaussians=50, cutoff=10.0,
+                gaussian_width=10.0 / 49, activation=activation)
+    tc, jc = tconfig.CFConvConfig(**args), jconfig.CFConvConfig(**args)
+    assert dataclasses.astuple(tc) == dataclasses.astuple(jc)
+    assert tc.gaussian_positions.dtype == jc.gaussian_positions.dtype
+    np.testing.assert_array_equal(tc.gaussian_positions,
+                                  jc.gaussian_positions)
+    with pytest.raises(ValueError) as t_err:
+        tconfig.CFConvConfig(8, 5, 2.0, 0.5, activation='relu')
+    with pytest.raises(ValueError) as j_err:
+        jconfig.CFConvConfig(8, 5, 2.0, 0.5, activation='relu')
+    assert str(t_err.value) == str(j_err.value)
 
 
 def assert_box_equal(t, j):

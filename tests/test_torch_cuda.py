@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from nnpops_tpu_torch import ANI2X_LAYER_DIMS, ANIBasis, _kernels
+from nnpops_tpu_torch.config import CFConvConfig
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,
                                          plain_energy_and_forces)
 from nnpops_tpu_torch.models.combined import ANIWithPME
+from nnpops_tpu_torch.models.schnet import CFConvStack
 from nnpops_tpu_torch.models.combined import \
     plain_energy_and_forces as combined_plain
 from nnpops_tpu_torch.neighbors.blocked import (payload_from_blocked,
@@ -24,8 +26,9 @@ from nnpops_tpu_torch.neighbors.blocked import (payload_from_blocked,
                                                 select_blocked)
 from nnpops_tpu_torch.neighbors.cell_list import CellList
 from nnpops_tpu_torch.neighbors.window import radial_window_inputs
-from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_nn, cuda_pme,
-                                  cuda_select, cuda_window)
+from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_cfconv, cuda_nn,
+                                  cuda_pme, cuda_select, cuda_window)
+from nnpops_tpu_torch.ops.cfconv import init_cfconv
 from nnpops_tpu_torch.ops.pme import PME
 from nnpops_tpu_torch.utils import make_water_box
 
@@ -348,3 +351,106 @@ def test_combined_step_kernels_match_plain(dev):
     assert dict(_kernels.LAUNCHES) == before
     np.testing.assert_allclose(float(e_k), float(e_p), rtol=1e-3)
     assert float((f_k - f_p).abs().max()) <= 5e-3 * float(f_p.abs().max())
+
+
+def cfconv_config(activation='ssp', width=128, num_gaussians=50):
+    return CFConvConfig(width=width, num_gaussians=num_gaussians,
+                        cutoff=10.0, gaussian_width=10.0 / (num_gaussians - 1),
+                        activation=activation)
+
+
+def cfconv_inputs(dev, cfg, k, n=37, seed=0):
+    """Random backward inputs: about 60 % of the lanes valid, row 5 all
+    masked, random biases."""
+    rng = np.random.RandomState(seed)
+    mask = rng.rand(n, k) < 0.6
+    mask[5] = False
+    dist = np.where(mask, rng.uniform(0.5, 9.9, (n, k)), 0.0)
+    idx = np.where(mask, rng.randint(0, n, (n, k)), n)
+    w = cfg.width
+    params = init_cfconv(torch.Generator().manual_seed(seed), cfg,
+                         device='cpu')
+    params = params._replace(b1=torch.tensor(0.1 * rng.randn(w)).float(),
+                             b2=torch.tensor(0.1 * rng.randn(w)).float())
+    tensors = (torch.tensor(dist, dtype=torch.float32),
+               torch.tensor(mask), torch.tensor(idx, dtype=torch.int32),
+               torch.tensor(rng.randn(n, w), dtype=torch.float32),
+               torch.tensor(rng.randn(n, w), dtype=torch.float32))
+    return (tuple(a.to(dev) for a in params),
+            tuple(a.to(dev) for a in tensors))
+
+
+def assert_cfconv_bwd_close(got, want):
+    """Normwise: d_dist and d_x to 1e-4, the weight gradients (sums over
+    every pair) to 1e-3 of the reference's scale."""
+    (gw, gd, gx), (ww, wd, wx) = got, want
+    for a, b, tol in [(gd, wd, 1e-4), (gx, wx, 1e-4)] + [
+            (a, b, 1e-3) for a, b in zip(gw, ww)]:
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize('k', [100, 640])
+@pytest.mark.parametrize('activation', ['ssp', 'tanh'])
+def test_cfconv_bwd_kernel_matches_plain(dev, k, activation):
+    cfg = cfconv_config(activation)
+    params, (dist, mask, idx, x, g) = cfconv_inputs(dev, cfg, k)
+    before = _kernels.LAUNCHES['cfconv_bwd']
+    got = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
+    assert _kernels.LAUNCHES['cfconv_bwd'] == before + 1
+    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg)
+    assert_cfconv_bwd_close(got, want)
+    assert not bool(got[1][5].any()) and not bool(got[2][5].any())
+    assert not bool(got[1][~mask].any())          # masked lanes exactly 0
+    again = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
+    for a, b in zip((*got[0], *got[1:]), (*again[0], *again[1:])):
+        assert torch.equal(a, b)                  # deterministic
+
+
+@pytest.mark.parametrize('width', [32, 64])
+def test_cfconv_bwd_kernel_other_widths(dev, width):
+    cfg = cfconv_config('ssp', width=width, num_gaussians=8)
+    params, (dist, mask, idx, x, g) = cfconv_inputs(dev, cfg, 64, n=50)
+    got = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
+    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg)
+    assert_cfconv_bwd_close(got, want)
+    with pytest.raises(ValueError, match='width'):
+        cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g,
+                               cfconv_config(width=48))
+
+
+def test_cfconv_stack_kernel_matches_plain(dev):
+    """A chunked 2-layer stack over the scatter-free distance payload on
+    water(300) at width 128 and a 6 A cutoff: value, position, input and
+    weight gradients through the kernel against the plain backward."""
+    water = make_water_box(300, seed=4)
+    cfg = CFConvConfig(width=128, num_gaussians=50, cutoff=6.0,
+                       gaussian_width=6.0 / 49)
+    stack = CFConvStack(cfg, num_layers=2)
+    params = stack.init(torch.Generator().manual_seed(3), device=dev)
+    cl = CellList.create(water.box, cfg.cutoff, capacity=128)
+    box = torch.tensor(water.box, device=dev)
+    x = torch.randn(len(water.positions), 128,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def run(plain):
+        p = torch.tensor(water.positions, device=dev).requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        prm = [tuple(a.clone().requires_grad_(True) for a in q)
+               for q in params]
+        sel = cl.select(p, box, build_mirror=True)
+        assert int(sel.max_neighbors) <= cl.capacity
+        d, idx, m = cl.payload_distances_from_selection(p, box, sel)
+        v = stack.apply_distances(prm, d, idx, m, xx, chunk_size=256,
+                                  plain=plain).sum()
+        return (v.detach(), *torch.autograd.grad(
+            v, [p, xx] + [a for q in prm for a in q]))
+
+    _kernels.reset_launch_counts()
+    got = run(False)
+    assert _kernels.LAUNCHES['cfconv_bwd'] == 2
+    want = run(True)
+    assert _kernels.LAUNCHES['cfconv_bwd'] == 2
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

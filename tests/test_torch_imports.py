@@ -59,6 +59,7 @@ def test_import_builds_nothing():
     from nnpops_tpu_torch import _kernels
     assert _kernels._lib is None
     assert set(_kernels.LAUNCHES) == {'angular_aev_fwd', 'angular_aev_bwd',
+                                      'cfconv_bwd',
                                       'fused_nn_fwd', 'fused_nn_fwdgrad',
                                       'left_pack', 'pme_window_fwd',
                                       'pme_window_bwd', 'window_radial_fwd',

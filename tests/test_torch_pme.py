@@ -280,8 +280,36 @@ def test_reciprocal_energy_equals_jax(water150):
 
 
 def test_cell_list_route_raises():
-    pme = PME(14, 15, 16, 5, 4.985823141035867, 138.935, NO_EXCL,
-              device='cpu')
-    with pytest.raises(NotImplementedError, match='A.6'):
-        pme.compute_direct(t(POS_RECT), t(CHARGES), 0.5, t(BOX_RECT),
-                           cell_list=object())
+    """``compute_direct(cell_list=...)`` (the half pairs of the cell list's
+    payload) on water(120) with the intramolecular exclusions: energy and
+    position gradient against JAX's same route (rtol 1e-5; gradients 1e-4
+    of scale) and against the pair path; a cell list whose cutoff is below
+    the PME cutoff raises, as in the JAX package."""
+    from nnpops_tpu.neighbors.cell_list import CellList as JCellList
+    from nnpops_tpu_torch.neighbors.cell_list import CellList
+    water = make_water_box(120, seed=5)
+    n = len(water.positions)
+    excl = np.full((n, 2), -1, np.int32)
+    for m in range(n // 3):
+        o, h1, h2 = 3 * m, 3 * m + 1, 3 * m + 2
+        excl[o], excl[h1], excl[h2] = [h1, h2], [o, h2], [o, h1]
+    pme = PME(16, 16, 16, 4, 0.5, 138.935, excl, device='cpu')
+    jp = jpme.PME(16, 16, 16, 4, 0.5, 138.935, excl)
+    cl = CellList.create(water.box, 5.0, capacity=96)
+    jcl = JCellList.create(water.box, 5.0, capacity=96)
+    assert cl.use_cells
+    q, box = t(water.charges), t(water.box)
+    jq, jbox = jnp.asarray(water.charges), jnp.asarray(water.box)
+    p = t(water.positions).requires_grad_(True)
+    e = pme.compute_direct(p, q, 5.0, box, cell_list=cl)
+    (g,) = torch.autograd.grad(e, p)
+    je, jg = jax.jit(jax.value_and_grad(lambda x: jp.compute_direct(
+        x, jq, 5.0, jbox, cell_list=jcl)))(jnp.asarray(water.positions))
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(float(e.detach()), float(je), rtol=1e-5)
+    np.testing.assert_allclose(g.numpy(), jg, rtol=0,
+                               atol=1e-4 * np.abs(jg).max())
+    e_pairs = pme.compute_direct(t(water.positions), q, 5.0, box)
+    np.testing.assert_allclose(float(e.detach()), float(e_pairs), rtol=1e-5)
+    with pytest.raises(ValueError, match='cutoff'):
+        pme.compute_direct(t(water.positions), q, 5.5, box, cell_list=cl)
