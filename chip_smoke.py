@@ -58,8 +58,23 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    path, which has no kernel: config 2 (``SchNetModel``, 21 atoms, 3
    interactions) and the O(N^2) harness (the stack over
    ``build_cfconv_neighbors`` at 1,000 atoms);
-9. prints the kernels' JSON line, the card line again, then
-   ``{"ok": true, "device": ...}`` as the last line.
+9. the window path's opt-in switches (the z-pair and cluster-pair radial
+   kernels, the 'mask' compaction): (a) each of their kernels against its
+   plain version at the shapes its path gives it, timed: the z-pair
+   forward and backward at 2,601 and 26,010 atoms, the cluster-pair
+   forward and backward per i-species at 26,010, the mask and lane
+   left-pack on the 26,010-atom angular grid; (b) ``window_radial='pair'``
+   at 2,601 atoms, 2 selection blocks x 8 steps as in 5 (launch counts
+   read just after), and on a frozen 26,010-atom selection, each step
+   against its plain step and against the 'window' step; (c)
+   ``with_blocked_layout(radial_impl='cluster')`` at 26,010 atoms (the
+   planner's time printed): one selection and 4 frozen steps with the
+   counts set to 0 just before, no overflow, one step against its plain
+   step and the 'window' step; (d) ``select_window(compact_impl='mask')``
+   at 26,010 atoms, twice with the counts set to 0 just before, equal to
+   the 'kernel' selection field by field and timed beside it;
+10. prints the wall time, the kernels' JSON line, the card line again,
+   then ``{"ok": true, "device": ...}`` as the last line.
 
 Any failure raises (non-zero exit). Run from the repository root:
 
@@ -88,11 +103,12 @@ from nnpops_tpu_torch.models import ani as ani_mod  # noqa: E402
 from nnpops_tpu_torch.models import schnet as schnet_mod  # noqa: E402
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,  # noqa: E402
                                          plain_energy_and_forces)
+from nnpops_tpu_torch.neighbors import clusters as clusters_mod  # noqa: E402
 from nnpops_tpu_torch.neighbors import window as window_mod  # noqa: E402
 from nnpops_tpu_torch.neighbors.blocked import payload_from_blocked  # noqa: E402
 from nnpops_tpu_torch.ops import (cuda_aev, cuda_cfconv,  # noqa: E402
-                                  cuda_nn, cuda_pme, cuda_select,
-                                  cuda_window)
+                                  cuda_cluster, cuda_nn, cuda_pme,
+                                  cuda_select, cuda_window, cuda_zpair)
 from nnpops_tpu_torch.ops.cfconv import build_cfconv_neighbors  # noqa: E402
 from nnpops_tpu_torch.ops.pme import PME  # noqa: E402
 from nnpops_tpu_torch.ops.aev_blocked import compute_aev_blocked  # noqa: E402
@@ -128,6 +144,18 @@ RAD_BWD_OPS = 205
 PME_TEST_OPS = 10
 PME_FWD_OPS = 22
 PME_BWD_OPS = 38
+# pair_radial.cu and cluster_radial.cu per (real center, lane) pair tested
+# and per pair inside the cutoff (R = 16 Gaussians; the pair kernel's one
+# evaluation serves both atoms of the pair); window_mask.cu per (center,
+# lane) pair; left_pack_lanes per mask byte.
+PAIR_TEST_OPS = 10
+PAIR_FWD_OPS = 100
+PAIR_BWD_OPS = 150
+CLUSTER_TEST_OPS = 10
+CLUSTER_FWD_OPS = 120
+CLUSTER_BWD_OPS = 200
+MASK_OPS = 10
+LANE_PACK_OPS = 3
 
 # Depth of the config-5 runs (its settings are models.combined's).
 C5_BLOCKS = 8
@@ -150,10 +178,19 @@ REPLACES = {
     'pme_window_fwd': 'nnpops_tpu/ops/pallas_pme.py:177',
     'pme_window_bwd': 'nnpops_tpu/ops/pallas_pme.py:199',
     'cfconv_bwd': 'nnpops_tpu/ops/pallas_cfconv.py:182',
+    'window_mask': 'nnpops_tpu/ops/pallas_select.py:244',
+    'left_pack_lanes': 'nnpops_tpu/ops/pallas_select.py:334',
+    'cluster_radial_fwd': 'nnpops_tpu/ops/pallas_cluster.py:180',
+    'cluster_radial_bwd': 'nnpops_tpu/ops/pallas_cluster.py:191',
+    'pair_radial_fwd': 'nnpops_tpu/ops/pallas_zpair.py:219',
+    'pair_radial_bwd': 'nnpops_tpu/ops/pallas_zpair.py:233',
 }
 SOURCES = {
     'angular_aev': 'nnpops_tpu_torch/csrc/angular_aev.cu',
     'cfconv_bwd': 'nnpops_tpu_torch/csrc/cfconv_bwd.cu',
+    'cluster_radial': 'nnpops_tpu_torch/csrc/cluster_radial.cu',
+    'pair_radial': 'nnpops_tpu_torch/csrc/pair_radial.cu',
+    'window_mask': 'nnpops_tpu_torch/csrc/window_mask.cu',
     'fused_nn': 'nnpops_tpu_torch/csrc/fused_nn.cu',
     'left_pack': 'nnpops_tpu_torch/csrc/left_pack.cu',
     'pme_window': 'nnpops_tpu_torch/csrc/pme_window.cu',
@@ -1032,6 +1069,397 @@ def cfconv_phase():
     return e
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the window path's opt-in switches (z-pair and cluster-pair
+# radial kernels, the 'mask' compaction).
+# ---------------------------------------------------------------------------
+
+def deterministic(label, first, again):
+    """Two launches on the same inputs give bitwise equal outputs."""
+    for a, b in zip(first, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f'{label}: two launches differ')
+
+
+def pair_entries(args, label):
+    """(fwd, bwd) entries of the z-pair kernel on one recorded call of
+    ``pair_radial(ctr, z3, shift, rc, eta, rs, ncells3, cell_caps,
+    torchani)``; the backward takes the cotangents of sum(out_a^2) +
+    sum(out_b^2)."""
+    ctr, z3, shift = (t.detach().contiguous() for t in args[:3])
+    rest = args[3:9]
+    rc, eta, rs, ncells3, caps, torchani = rest
+    spec = cuda_zpair._spec(
+        tuple(int(x) for x in ncells3), tuple(int(x) for x in caps),
+        float(rc), tuple(float(x) for x in eta), tuple(float(x) for x in rs),
+        bool(torchani))
+    out_k = cuda_zpair.pair_radial_fwd_cuda(ctr, z3, shift, spec)
+    ins = [t.clone().requires_grad_(True) for t in (ctr, z3, shift)]
+    out_p = cuda_zpair.pair_radial_plain(*ins, *rest)
+    for name, a, b in zip(('out_a', 'out_b'), out_k, out_p):
+        check_normwise(f'{label} pair fwd {name}', a, b, rtol=1e-5)
+    g = tuple((2.0 * o).detach().contiguous() for o in out_p)
+    grads_k = cuda_zpair.pair_radial_bwd_cuda(ctr, z3, shift, *g, spec)
+    grads_p = torch.autograd.grad(out_p, ins, g, retain_graph=True)
+    for name, a, b in zip(('dctr', 'dz3', 'dshift'), grads_k, grads_p):
+        check_normwise(f'{label} pair bwd {name}', a, b, rtol=1e-4)
+    deterministic(f'{label} pair fwd', out_k,
+                  cuda_zpair.pair_radial_fwd_cuda(ctr, z3, shift, spec))
+    deterministic(f'{label} pair bwd', grads_k,
+                  cuda_zpair.pair_radial_bwd_cuda(ctr, z3, shift, *g, spec))
+    # Work: real center rows against the 5 z-triples, and the pairs inside
+    # the cutoff (the self lanes of the own column excluded).
+    geo = spec.geo
+    cols = torch.as_tensor(cuda_zpair._column_cells(geo.ncells3), device=DEV)
+    lanes = z3.index_select(0, cols.reshape(-1)).reshape(
+        5, geo.ncells, 3, geo.ll).permute(1, 0, 2, 3)
+    lanes = lanes + torch.cat([shift.new_zeros(geo.ncells, 1, 3), shift],
+                              1)[..., None]
+    d2 = sum((lanes[:, None, :, k, :] - ctr[:, :, None, k:k + 1]).square()
+             for k in range(3))                        # [ncells, c, 5, L]
+    real = ctr[:, :, 0] < cuda_window.EMPTY_ROW
+    own = torch.arange(geo.ll, device=DEV)[None, :] == torch.as_tensor(
+        geo.self_lane, device=DEV)[:, None]            # [c, L]
+    self_pair = torch.zeros_like(d2, dtype=torch.bool)
+    self_pair[:, :, 0] = own[None]
+    inside = int(((d2 < float(rc) ** 2) & real[:, :, None, None]
+                  & ~self_pair).sum())
+    tested = int(real.sum()) * 5 * geo.ll
+    io = 4 * (ctr.numel() + z3.numel() + shift.numel())
+    fwd = entry('pair_radial_fwd', 'pair_radial',
+                max(max_abs(a, b) for a, b in zip(out_k, out_p)),
+                lambda: cuda_zpair.pair_radial_fwd_cuda(ctr, z3, shift, spec),
+                lambda: cuda_zpair.pair_radial_plain(ctr, z3, shift, *rest),
+                io + 4 * sum(o.numel() for o in out_k),
+                tested * PAIR_TEST_OPS + inside * PAIR_FWD_OPS, F32_OPS_PER_S)
+    bwd = entry('pair_radial_bwd', 'pair_radial',
+                max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
+                lambda: cuda_zpair.pair_radial_bwd_cuda(ctr, z3, shift, *g,
+                                                        spec),
+                lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True),
+                2 * io + 4 * sum(t.numel() for t in g),
+                tested * PAIR_TEST_OPS + inside * PAIR_BWD_OPS, F32_OPS_PER_S)
+    print(f'{label} pair radial cells {geo.ncells} center rows {geo.c} lanes '
+          f'5 x {geo.ll} (pairs tested {tested}, inside {inside}): fwd '
+          f'{fwd["ms"]:.4f} ms (eager {fwd["event_ms"]:.4f}, plain '
+          f'{fwd["plain_ms"]:.4f}, bound {fwd["bound_ms"]:.5f} '
+          f'{fwd["bound_by"]}), bwd {bwd["ms"]:.4f} ms (eager '
+          f'{bwd["event_ms"]:.4f}, plain {bwd["plain_ms"]:.4f}, bound '
+          f'{bwd["bound_ms"]:.5f} {bwd["bound_by"]}), max|err| '
+          f'{fwd["max_abs_err"]:.3g} / {bwd["max_abs_err"]:.3g}')
+    return fwd, bwd
+
+
+def cluster_entries(args, label):
+    """(fwd, bwd) entries of the cluster-pair kernel on one recorded call of
+    ``cluster_radial(jx, jy, jz, centers, rc, eta, rs, cl, lane_caps,
+    self_block, torchani)`` (one i-species); the backward takes the
+    cotangent of sum(out^2)."""
+    planes = [t.detach().contiguous() for t in args[:4]]
+    rest = args[4:11]
+    rc, eta, rs, cl, lane_caps, self_block, torchani = rest
+    spec = cuda_cluster._spec(
+        int(cl), tuple(int(x) for x in lane_caps), int(self_block),
+        float(rc), tuple(float(x) for x in eta), tuple(float(x) for x in rs),
+        bool(torchani))
+    out_k = cuda_cluster.cluster_radial_fwd_cuda(*planes, spec)
+    ins = [t.clone().requires_grad_(True) for t in planes]
+    out_p = cuda_cluster.cluster_radial_plain(*ins, *rest)
+    check_normwise(f'{label} cluster fwd', out_k, out_p, rtol=1e-5)
+    g = (2.0 * out_p).detach().contiguous()
+    grads_k = cuda_cluster.cluster_radial_bwd_cuda(*planes, g, spec)
+    grads_p = torch.autograd.grad(out_p, ins, g, retain_graph=True)
+    for name, a, b in zip(('djx', 'djy', 'djz', 'dcenters'), grads_k,
+                          grads_p):
+        check_normwise(f'{label} cluster bwd {name}', a, b, rtol=1e-4)
+    deterministic(f'{label} cluster fwd', (out_k,),
+                  (cuda_cluster.cluster_radial_fwd_cuda(*planes, spec),))
+    deterministic(f'{label} cluster bwd', grads_k,
+                  cuda_cluster.cluster_radial_bwd_cuda(*planes, g, spec))
+    geo = spec.geo
+    jx, jy, jz, ctr = planes
+    d2 = sum((c[:, None, :] - ctr[:, :, i:i + 1]).square()
+             for i, c in enumerate((jx, jy, jz)))      # [ncl, cl, lanes]
+    real = ctr[:, :, 0] < cuda_window.EMPTY_ROW
+    lane = torch.arange(geo.lanes, device=DEV)
+    row = torch.arange(geo.cl, device=DEV)
+    inside = int(((d2 < float(rc) ** 2) & real[:, :, None]
+                  & (lane[None, :] != row[:, None] + geo.self_off)).sum())
+    tested = int(real.sum()) * geo.lanes
+    io = 4 * (3 * jx.numel() + ctr.numel())
+    fwd = entry('cluster_radial_fwd', 'cluster_radial', max_abs(out_k, out_p),
+                lambda: cuda_cluster.cluster_radial_fwd_cuda(*planes, spec),
+                lambda: cuda_cluster.cluster_radial_plain(*planes, *rest),
+                io + 4 * out_k.numel(),
+                tested * CLUSTER_TEST_OPS + inside * CLUSTER_FWD_OPS,
+                F32_OPS_PER_S)
+    bwd = entry('cluster_radial_bwd', 'cluster_radial',
+                max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
+                lambda: cuda_cluster.cluster_radial_bwd_cuda(*planes, g,
+                                                             spec),
+                lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True),
+                2 * io + 4 * g.numel(),
+                tested * CLUSTER_TEST_OPS + inside * CLUSTER_BWD_OPS,
+                F32_OPS_PER_S)
+    print(f'{label} cluster radial i-species block {int(self_block)}: '
+          f'{jx.shape[0]} clusters x {geo.lanes} lanes (pairs tested '
+          f'{tested}, inside {inside}): fwd {fwd["ms"]:.4f} ms (eager '
+          f'{fwd["event_ms"]:.4f}, plain {fwd["plain_ms"]:.4f}, bound '
+          f'{fwd["bound_ms"]:.5f} {fwd["bound_by"]}), bwd {bwd["ms"]:.4f} '
+          f'ms (eager {bwd["event_ms"]:.4f}, plain {bwd["plain_ms"]:.4f}, '
+          f'bound {bwd["bound_ms"]:.5f} {bwd["bound_by"]})')
+    return fwd, bwd
+
+
+def mask_entries(mask_args, pack_args):
+    """Entries of the mask kernel and the lane left-pack on one recorded
+    'mask' selection; both must equal their plain versions exactly."""
+    cx, cy, cz, centers = (t.contiguous() for t in mask_args[:4])
+    w2, caps = mask_args[4:6]
+    m_k = cuda_select.window_mask_cuda(cx, cy, cz, centers, w2, caps)
+    m_p = cuda_select.window_mask_plain(cx, cy, cz, centers, w2, caps)
+    if not torch.equal(m_k, m_p):
+        raise AssertionError(f'window_mask: kernel and plain differ in '
+                             f'{int((m_k != m_p).sum())} of {m_k.numel()}')
+    m_atom, widths, a_caps = pack_args
+    m_atom = m_atom.contiguous()
+    lanes, counts = cuda_select.left_pack_lanes_cuda(m_atom, widths, a_caps)
+    p_lanes, p_counts = cuda_select.left_pack_lanes_plain(m_atom, widths,
+                                                          a_caps)
+    if not (torch.equal(lanes, p_lanes) and torch.equal(counts, p_counts)):
+        raise AssertionError('left_pack_lanes: kernel and plain differ')
+    ncells, c, kk = m_k.shape
+    mask = entry('window_mask', 'window_mask', 0.0,
+                 lambda: cuda_select.window_mask_cuda(cx, cy, cz, centers,
+                                                      w2, caps),
+                 lambda: cuda_select.window_mask_plain(cx, cy, cz, centers,
+                                                       w2, caps),
+                 4 * (3 * cx.numel() + centers.numel()) + m_k.numel(),
+                 MASK_OPS * m_k.numel(), F32_OPS_PER_S)
+    pack = entry('left_pack_lanes', 'window_mask', 0.0,
+                 lambda: cuda_select.left_pack_lanes_cuda(m_atom, widths,
+                                                          a_caps),
+                 lambda: cuda_select.left_pack_lanes_plain(m_atom, widths,
+                                                           a_caps),
+                 m_atom.numel() + 4 * (lanes.numel() + counts.numel()),
+                 LANE_PACK_OPS * m_atom.numel(), F32_OPS_PER_S)
+    print(f'window_mask cells {ncells} rows {c} lanes {kk} (valid '
+          f'{int(m_k.sum())}): {mask["ms"]:.4f} ms (eager '
+          f'{mask["event_ms"]:.4f}, plain {mask["plain_ms"]:.4f}, bound '
+          f'{mask["bound_ms"]:.5f} {mask["bound_by"]}); left_pack_lanes '
+          f'rows {m_atom.shape[0]} widths {tuple(widths)} caps '
+          f'{tuple(a_caps)}: {pack["ms"]:.4f} ms (eager '
+          f'{pack["event_ms"]:.4f}, plain {pack["plain_ms"]:.4f}, bound '
+          f'{pack["bound_ms"]:.5f} {pack["bound_by"]})')
+    return mask, pack
+
+
+def step_vs_window(label, model, window, params, p, box, cell_list, sel):
+    """One step of an opt-in radial path against the default 'window' step
+    at the same positions, at the force gate."""
+    e_k, f_k = model.energy_and_forces_from_selection(params, p, box,
+                                                      cell_list, sel)
+    e_w, f_w = window.energy_and_forces_from_selection(
+        params, p, box, cell_list, window.select(p, box, cell_list))
+    check_close(f'{label} vs window energy', e_k, e_w, rtol=1e-3, atol=0.0)
+    check_normwise(f'{label} vs window forces', f_k, f_w, rtol=5e-3)
+    print(f'{label} step vs window step: E {float(e_k):.6f} vs '
+          f'{float(e_w):.6f}, max|dF| {max_abs(f_k, f_w):.3g} (max|F| '
+          f'{float(f_w.abs().max()):.3g})')
+
+
+def frozen_steps(label, model, params, pos, box, cell_list, sel):
+    """LARGE_STEPS nudged steps on a frozen selection between CUDA events;
+    returns (positions, ms/step)."""
+    model.energy_and_forces_from_selection(params, pos, box, cell_list, sel)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    p = pos
+    start.record()
+    for _ in range(LARGE_STEPS):
+        e, f = model.energy_and_forces_from_selection(params, p, box,
+                                                      cell_list, sel)
+        p = p + 1e-6 * f
+    end.record()
+    torch.cuda.synchronize()
+    model.check_overflow(p, box, cell_list, sel)
+    if not (torch.isfinite(e) and torch.isfinite(f).all()):
+        raise AssertionError(f'{label}: non-finite energy or forces')
+    ms = start.elapsed_time(end) / LARGE_STEPS
+    print(f'{label}: {ms:.3f} ms/step over {LARGE_STEPS} steps (CUDA events, '
+          f'frozen selection), E {float(e):.4f}')
+    return p, ms
+
+
+def opt_in_phase(basis, params):
+    """Phase 9: the z-pair radial at 2,601 and 26,010 atoms, the
+    cluster-pair radial and the 'mask' compaction at 26,010. Returns the
+    six kernels' entries with their launches."""
+    kernels = {}
+    steps = BLOCKS * REFRESH
+
+    # (a, b) window_radial='pair' at 2,601 atoms.
+    _, window, cell_list, pos, box = build(MOLECULES, 'window', basis)
+    pair = dataclasses.replace(window, window_radial='pair')
+    calls = []
+    with recording(cuda_zpair, 'pair_radial', calls):
+        sel = pair.select(pos, box, cell_list)
+        pair.energy_and_forces_from_selection(params, pos, box, cell_list,
+                                              sel)
+    if len(calls) != 1 or tuple(sel.shift_planes.shape) != (1, 1, 1):
+        raise AssertionError(f'pair step: {len(calls)} kernel calls, shift '
+                             f'planes {tuple(sel.shift_planes.shape)}')
+    fwd, bwd = pair_entries(calls[0][0], 'pair 2.6k')
+    launches, p, sel = drive('pair', pair, params, pos, box, cell_list)
+    require_launches('pair', launches, {
+        'pair_radial_fwd': steps, 'pair_radial_bwd': steps,
+        'left_pack': BLOCKS, 'angular_aev_fwd': steps,
+        'angular_aev_bwd': steps, 'fused_nn_fwdgrad': 2 * steps})
+    if launches['window_radial_fwd'] or launches['window_radial_bwd']:
+        raise AssertionError('the pair path launched the window radial kernel')
+    step_vs_plain('pair 2.6k', pair, params, p, box, cell_list, sel)
+    step_vs_window('pair 2.6k', pair, window, params, p, box,
+                   cell_list, sel)
+    fwd['launches'] = launches['pair_radial_fwd']
+    bwd['launches'] = launches['pair_radial_bwd']
+    kernels['pair_radial_fwd'], kernels['pair_radial_bwd'] = fwd, bwd
+    del window, pair, sel, p, calls
+
+    # The 26,010-atom models: window, pair and cluster.
+    water, window, cell_list, pos, box = build(LARGE_MOLECULES, 'window',
+                                               basis)
+    base = ANIModel.from_atomic_numbers(water.atomic_numbers, basis,
+                                        nn_dtype='bfloat16', nn_impl='fused')
+    t0 = time.perf_counter()
+    cluster = base.with_blocked_layout(water.positions, water.box,
+                                       margin=MARGIN, impl='window',
+                                       skin=SKIN, radial_impl='cluster')
+    plan_s = time.perf_counter() - t0
+    plan = cluster.blocked_layout.cluster_plan
+    if cluster.window_radial != 'cluster' or plan is None:
+        raise AssertionError('26k: the cluster planner refused the box')
+    if dataclasses.replace(cluster.blocked_layout,
+                           cluster_plan=None) != window.blocked_layout:
+        raise AssertionError('26k: the cluster layout differs from window')
+    print(f'cluster plan 26k ({plan_s:.1f} s host, with_blocked_layout '
+          f'included): ncl {plan.ncl}, jcaps {plan.jcaps}, cand_caps '
+          f'{plan.cand_caps}, kmir {plan.kmir}, col_grid {plan.col_grid}')
+
+    # (b) The pair step on a frozen 26k selection.
+    pair = dataclasses.replace(window, window_radial='pair')
+    calls = []
+    with recording(cuda_zpair, 'pair_radial', calls):
+        sel = pair.select(pos, box, cell_list)
+        pair.energy_and_forces_from_selection(params, pos, box, cell_list,
+                                              sel)
+    big_fwd, big_bwd = pair_entries(calls[0][0], 'pair 26k')
+    fwd['max_abs_err'] = max(fwd['max_abs_err'], big_fwd['max_abs_err'])
+    bwd['max_abs_err'] = max(bwd['max_abs_err'], big_bwd['max_abs_err'])
+    del calls
+    p, _ = frozen_steps('pair 26k', pair, params, pos, box, cell_list, sel)
+    step_vs_plain('pair 26k', pair, params, p, box, cell_list, sel)
+    step_vs_window('pair 26k', pair, window, params, p, box,
+                   cell_list, sel)
+    del pair, sel
+
+    # (a, c) The cluster step: one selection and frozen steps, the counts
+    # set to 0 just before.
+    calls = []
+    with recording(clusters_mod, 'cluster_radial', calls):
+        sel = cluster.select(pos, box, cell_list)
+        cluster.energy_and_forces_from_selection(params, pos, box, cell_list,
+                                                 sel)
+    if len(calls) != len(plan.present):
+        raise AssertionError(f'cluster_radial called {len(calls)} times')
+    ents = [cluster_entries(args, '26k') for args, _ in calls]
+    del calls
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sel = cluster.select(pos, box, cell_list)
+    cluster.check_overflow(pos, box, cell_list, sel)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    p, _ = frozen_steps('cluster 26k', cluster, params, pos, box, cell_list,
+                        sel)
+    launches = dict(_kernels.LAUNCHES)
+    print(f'cluster 26k: selection {1e3 * select_s:.1f} ms (host clock, with '
+          f'check_overflow), launches {launches}')
+    need = (LARGE_STEPS + 1) * len(plan.present)
+    require_launches('cluster', launches, {
+        'cluster_radial_fwd': need, 'cluster_radial_bwd': need})
+    if launches['window_radial_fwd'] or launches['pair_radial_fwd']:
+        raise AssertionError('the cluster path launched another radial '
+                             'kernel')
+    step_vs_plain('cluster 26k', cluster, params, p, box, cell_list, sel)
+    step_vs_window('cluster 26k', cluster, window, params, p, box,
+                   cell_list, sel)
+    for i, name in enumerate(('cluster_radial_fwd', 'cluster_radial_bwd')):
+        kernels[name] = merge([e[i] for e in ents])
+        kernels[name]['launches'] = launches[name]
+    del cluster, sel, ents
+
+    # (a, d) select_window(compact_impl='mask') against 'kernel'.
+    g = window.grouping
+    layout = window.blocked_layout
+    kw = dict(species=window.species_array, layout=layout,
+              radial_cutoff=basis.radial_cutoff,
+              angular_cutoff=basis.angular_cutoff,
+              grouping_order=g.order,
+              present_counts=tuple(g.counts[s] for s in layout.present),
+              need_shift_planes=True)
+    masks, packs = [], []
+    with recording(window_mod, 'window_mask', masks), \
+            recording(window_mod, 'left_pack_lanes', packs):
+        window_mod.select_window(cell_list, pos, box, compact_impl='mask',
+                                 **kw)
+    mask, pack = mask_entries(masks[0][0], packs[0][0])
+    del masks, packs
+    times = {'kernel': [], 'mask': []}
+    sels = {}
+    for impl in ('kernel', 'mask', 'mask', 'kernel'):
+        torch.cuda.synchronize()
+        if impl == 'mask' and 'mask' not in sels:
+            _kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sels[impl] = window_mod.select_window(cell_list, pos, box,
+                                              compact_impl=impl, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        times[impl].append(start.elapsed_time(end))
+        if impl == 'mask' and len(times['mask']) == 2:
+            launches = dict(_kernels.LAUNCHES)
+    require_launches('mask', launches, {'window_mask': 2,
+                                        'left_pack_lanes': 2})
+    if launches['left_pack']:
+        raise AssertionError("the 'mask' selection launched the left-pack")
+    k_sel, m_sel = sels['kernel'], sels['mask']
+    fields = [('ang.' + f, getattr(k_sel.ang, f), getattr(m_sel.ang, f))
+              for f in ('order', 'slot_of_sorted', 'nbr_rad', 'rad_mask',
+                        'max_rad', 'max_ang', 'ang_in_rad')]
+    if k_sel.tier is not None:
+        for t in range(len(k_sel.tier.idx)):
+            fields += [(f'tier.{f}[{t}]', getattr(k_sel.tier, f)[t],
+                        getattr(m_sel.tier, f)[t]) for f in ('idx', 'mask')]
+        fields += [('tier.' + f, getattr(k_sel.tier, f),
+                    getattr(m_sel.tier, f))
+                   for f in ('row_atom', 'tier_counts', 'concat_pos')]
+    for name, a, b in fields:
+        if not torch.equal(a, b):
+            raise AssertionError(f"26k 'mask' selection differs from "
+                                 f"'kernel' in {name}")
+    print(f"select_window 26k (CUDA events, kernel, mask, mask, kernel): "
+          f"'kernel' {times['kernel']} ms, 'mask' {times['mask']} ms; "
+          f'equal in {len(fields)} fields; launches {launches}')
+    mask['launches'] = launches['window_mask']
+    pack['launches'] = launches['left_pack_lanes']
+    kernels['window_mask'], kernels['left_pack_lanes'] = mask, pack
+    return kernels
+
+
 def main():
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1039,7 +1467,7 @@ def main():
     print(smi[0])
     torch.cuda.set_device(DEV)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _kernels.library()
     print(f'kernel build/load: {time.perf_counter() - t0:.1f} s '
           f'({_kernels.library_path().name})')
@@ -1066,7 +1494,10 @@ def main():
     window_large_phase(basis, params)
     kernels['pme_window_fwd'], kernels['pme_window_bwd'] = config5_phase(basis)
     kernels['cfconv_bwd'] = cfconv_phase()
+    kernels.update(opt_in_phase(basis, params))
 
+    print(f'chip_smoke wall time: {time.perf_counter() - t_start:.1f} s '
+          '(the kernels\' build included)')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     print(json.dumps({'kernels': [{key: k[key] for key in keys}

@@ -23,15 +23,19 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / 'csrc'
 BUILD_DIR = Path(__file__).parent / '_build'
-SOURCES = ('angular_aev.cu', 'cfconv_bwd.cu', 'fused_nn.cu', 'left_pack.cu',
-           'pme_window.cu', 'window_radial.cu')
+SOURCES = ('angular_aev.cu', 'cfconv_bwd.cu', 'cluster_radial.cu',
+           'fused_nn.cu', 'left_pack.cu', 'pair_radial.cu', 'pme_window.cu',
+           'window_mask.cu', 'window_radial.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
 LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0, 'cfconv_bwd': 0,
+            'cluster_radial_fwd': 0, 'cluster_radial_bwd': 0,
             'fused_nn_fwd': 0, 'fused_nn_fwdgrad': 0,
-            'left_pack': 0, 'pme_window_fwd': 0, 'pme_window_bwd': 0,
-            'window_radial_fwd': 0, 'window_radial_bwd': 0}
+            'left_pack': 0, 'left_pack_lanes': 0,
+            'pair_radial_fwd': 0, 'pair_radial_bwd': 0,
+            'pme_window_fwd': 0, 'pme_window_bwd': 0,
+            'window_mask': 0, 'window_radial_fwd': 0, 'window_radial_bwd': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +54,14 @@ _SIGNATURES = {
     # dist, mask, idx, x, g, w1, b1, w2, b2, centers, d_dist, d_x, part, dw,
     # n, k, width, g, nblocks, tanh, inv_gw, pi_rc, stream
     'cfconv_bwd': (_P,) * 14 + (_I,) * 6 + (_D, _D, _P),
+    # jx, jy, jz, centers, out, ncl, cl, lanes, npres, lane_lo, lane_hi
+    # (host arrays), self_off, n_r, eta, rs (host), rc, scale, stream
+    'cluster_radial_fwd': (_P,) * 5 + (_I,) * 4 + (_P,) * 2 + (_I,) * 2
+                          + (_P,) * 2 + (_D, _D, _P),
+    # jx, jy, jz, centers, g, dj [3, ncl, lanes], dctr, then as the forward
+    # from ncl on
+    'cluster_radial_bwd': (_P,) * 7 + (_I,) * 4 + (_P,) * 2 + (_I,) * 2
+                          + (_P,) * 2 + (_D, _D, _P),
     # x, wbuf, fbuf, e_out, dx_out, n, in_actual, n_layers, dims, models,
     # stream
     'fused_nn_fwd': (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
@@ -57,12 +69,26 @@ _SIGNATURES = {
     # keys, packed, counts, n_rows, width, k_total, npres, widths, caps
     # (host arrays), stream
     'left_pack': (_P,) * 3 + (_I,) * 4 + (_P,) * 3,
+    # mask (uint8), lanes, counts, then as left_pack from n_rows on
+    'left_pack_lanes': (_P,) * 3 + (_I,) * 4 + (_P,) * 3,
+    # ctr, z3, shift, out_a, out_b, nx, ny, nz, npres, row_off (host),
+    # n_chunks, chunk_lo, chunk_hi, chunk_sp (host), n_r, eta, rs (host),
+    # rc, scale, stream
+    'pair_radial_fwd': (_P,) * 5 + (_I,) * 4 + (_P, _I) + (_P,) * 3
+                       + (_I,) + (_P,) * 2 + (_D, _D, _P),
+    # ctr, z3, shift, ga, gb, dctr, dz5 [5, ncells, 3, L], dsh, then as the
+    # forward from nx on
+    'pair_radial_bwd': (_P,) * 8 + (_I,) * 4 + (_P, _I) + (_P,) * 3
+                       + (_I,) + (_P,) * 2 + (_D, _D, _P),
     # candx, candy, candz, candq, centers, excl, out, ncells, nx, ny, nz, c,
     # ne, cutoff, alpha, coulomb, stream
     'pme_window_fwd': (_P,) * 7 + (_I,) * 6 + (_D,) * 3 + (_P,),
     # candx, candy, candz, candq, centers, excl, g, dcand [4, ncells, kk],
     # dctr, then as the forward from ncells on
     'pme_window_bwd': (_P,) * 9 + (_I,) * 6 + (_D,) * 3 + (_P,),
+    # candx, candy, candz, centers, mask (uint8), ncells, npres, cell_caps
+    # (host), w2, stream
+    'window_mask': (_P,) * 5 + (_I,) * 2 + (_P, _D, _P),
     # candx, candy, candz, centers, out, ncells, npres, kk, lane_lo,
     # lane_hi, ctr_off, self_shift (host), n_r, eta, rs (host), rc, scale,
     # stream

@@ -9,11 +9,13 @@ the differentiable phase (``energy_and_forces_from_selection``).
 Implemented ``aev_impl`` values: 'window' (the production path: window
 selection with the left-pack kernel, window radial kernel, tiered angular
 kernel), 'blocked' (PyTorch angular block) and 'pallas' (the angular CUDA
-kernel; the names are kept from the JAX package). ``nn_impl``: 'xla'
-(PyTorch reference of the grouped ensemble, f32 or ``nn_dtype='bfloat16'``)
-or 'fused' (the fused-NN CUDA kernel, bf16 operands). The 'cluster' and
-'pair' window radial kernels (ROADMAP B.8, B.9) and the dense and payload
-AEV paths (ROADMAP A.4, A.6) raise NotImplementedError.
+kernel; the names are kept from the JAX package). ``window_radial``, the
+window path's radial kernel: 'window' (the default), 'pair' (the symmetric
+z-pair kernel) or 'cluster' (the cluster-pair kernel over a planned
+``ClusterPlan``). ``nn_impl``: 'xla' (PyTorch reference of the grouped
+ensemble, f32 or ``nn_dtype='bfloat16'``) or 'fused' (the fused-NN CUDA
+kernel, bf16 operands). The dense and payload AEV paths (ROADMAP A.4, A.6)
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,19 +31,16 @@ from ..config import ANI2X_ELEMENTS, ANI2X_LAYER_DIMS, ANIBasis
 from ..neighbors.blocked import (BlockedLayout, payload_from_blocked,
                                  plan_blocked_layout, select_blocked)
 from ..neighbors.cell_list import CellList
-from ..neighbors.window import (WindowSelection, plan_angular_tiers,
-                                plan_window_cells, select_window,
-                                window_features)
+from ..neighbors.clusters import plan_clusters
+from ..neighbors.window import (RADIAL_IMPLS, WindowSelection,
+                                plan_angular_tiers, plan_window_cells,
+                                select_window, window_features)
 from ..ops.aev_blocked import compute_aev_blocked
 from ..ops.batched_nn import (EnsembleParams, SpeciesGrouping, build_grouping,
                               ensemble_energy_grouped_rows, init_ensemble,
                               resolve_device)
 from ..ops.cuda_nn import (ensemble_energy_grouped_rows_fused,
                            ensemble_energy_grouped_rows_fused_plain)
-
-_RADIAL_TODO = ("window_radial={!r}: only 'window' is ported; the 'cluster' "
-                "and 'pair' radial kernels are ROADMAP B.8 / B.9 of the port")
-
 
 def species_from_atomic_numbers(atomic_numbers,
                                 elements: Sequence[int] = ANI2X_ELEMENTS,
@@ -100,8 +99,9 @@ class ANIModel:
     window_radial: str = 'window'
 
     def __post_init__(self):
-        if self.window_radial != 'window':
-            raise NotImplementedError(_RADIAL_TODO.format(self.window_radial))
+        if self.window_radial not in RADIAL_IMPLS:
+            raise ValueError(f'window_radial={self.window_radial!r} not in '
+                             f'{RADIAL_IMPLS}')
         if self.nn_impl not in ('xla', 'fused'):
             raise ValueError(f"nn_impl={self.nn_impl!r} not in ('xla', 'fused')")
 
@@ -130,9 +130,14 @@ class ANIModel:
         periodic box at least 3 cells wide and falls back to 'pallas'
         without one). ``skin`` widens every capacity window for Verlet-skin
         stepping. Window mode rounds the lane capacities up to multiples
-        of 8, also when it falls back."""
-        if radial_impl not in (None, 'window'):
-            raise NotImplementedError(_RADIAL_TODO.format(radial_impl))
+        of 8, also when it falls back. ``radial_impl`` (window mode only,
+        ignored otherwise, as in the JAX package) sets ``window_radial``;
+        'cluster' plans the clusters and keeps 'window' when the planner
+        refuses the box (strongly triclinic, or too small for one image
+        shift per cluster pair)."""
+        if radial_impl not in (None,) + RADIAL_IMPLS:
+            raise ValueError(f'radial_impl={radial_impl!r} not in '
+                             f'{RADIAL_IMPLS}')
         if impl not in ('blocked', 'pallas', 'window'):
             raise ValueError(f"impl={impl!r} not in ('blocked', 'pallas', "
                              "'window')")
@@ -170,7 +175,19 @@ class ANIModel:
                 small_caps=small_caps, num_big_cells=num_big,
                 ang_tier_caps=tier_caps, ang_tier_rows=tier_rows,
                 ang_cell_caps=ang_ccaps, ang_cell_grid=ang_grid)
-        return dataclasses.replace(self, aev_impl=impl, blocked_layout=layout)
+        window_radial = self.window_radial
+        if impl == 'window' and radial_impl is not None:
+            if radial_impl == 'cluster':
+                plan = plan_clusters(pos, box, self.species_array,
+                                     self.basis.radial_cutoff, skin=skin,
+                                     margin=margin)
+                if plan is None:
+                    radial_impl = 'window'   # unsuitable box: keep window
+                else:
+                    layout = dataclasses.replace(layout, cluster_plan=plan)
+            window_radial = radial_impl
+        return dataclasses.replace(self, aev_impl=impl, blocked_layout=layout,
+                                   window_radial=window_radial)
 
     def create_cell_list(self, box, skin: float = 0.0):
         """The matching CellList for this model's planned layout: window
@@ -227,7 +244,10 @@ class ANIModel:
                 self.blocked_layout, self.basis.radial_cutoff,
                 self.basis.angular_cutoff, grouping_order=g.order,
                 present_counts=tuple(g.counts[s]
-                                     for s in self.blocked_layout.present))
+                                     for s in self.blocked_layout.present),
+                need_shift_planes=self.window_radial == 'window',
+                cluster_plan=(self.blocked_layout.cluster_plan
+                              if self.window_radial == 'cluster' else None))
         return select_blocked(cell_list, positions, box, self.species_array,
                               self.blocked_layout, self.basis.radial_cutoff,
                               self.basis.angular_cutoff)
@@ -237,7 +257,8 @@ class ANIModel:
         species for the lane and cell-slot capacities). The window radial is
         capacity-free; its capacities are the per-(cell, species)
         occupancies, the angular lanes, the big-cell count and the tier
-        rows."""
+        rows. A cluster selection adds its j-cluster and candidate counts,
+        the most entries on one j-cluster and the geometric bound (0/1)."""
         self._require_blocked()
         sel = sel if sel is not None else self.select(positions, box, cell_list)
         if self.aev_impl != 'window':
@@ -253,6 +274,12 @@ class ANIModel:
             counts['num_big_cells'] = sel.n_big_true
         if sel.tier is not None:
             counts['ang_tier_rows'] = sel.tier.tier_counts
+        if sel.clusters is not None:
+            counts['cluster_jcount'] = sel.clusters.max_jcount
+            counts['cluster_cand'] = sel.clusters.max_cand
+            counts['cluster_mirror'] = sel.clusters.max_mir
+            counts['cluster_geom'] = sel.clusters.geom_violation.to(
+                torch.int32)
         return counts
 
     def _capacities(self, cell_list) -> dict:
@@ -272,6 +299,11 @@ class ANIModel:
         if layout.ang_tier_rows is not None:
             caps['ang_tier_rows'] = np.cumsum(np.asarray(layout.ang_tier_rows),
                                               axis=0)
+        plan = layout.cluster_plan
+        if plan is not None:
+            caps.update(cluster_jcount=np.asarray(plan.jcaps),
+                        cluster_cand=np.asarray(plan.cand_caps),
+                        cluster_mirror=plan.kmir, cluster_geom=0)
         return caps
 
     def check_overflow(self, positions, box, cell_list, sel=None) -> None:
@@ -304,7 +336,8 @@ class ANIModel:
             # species block), so the ensemble runs on row slices.
             feat = window_features(cell_list, positions, box, sel, self.basis,
                                    self.blocked_layout, atom_order=order,
-                                   plain=plain)
+                                   plain=plain,
+                                   radial_impl=self.window_radial)
         else:
             pallas = self.aev_impl == 'pallas'
             # The species grouping composed into the payload's row order:

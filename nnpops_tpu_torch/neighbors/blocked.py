@@ -69,6 +69,8 @@ class BlockedLayout:
       takes the remaining rows).
     ang_cell_caps / ang_cell_grid: a dedicated angular candidate grid
       (None: share the radial grid).
+    cluster_plan: the ``neighbors.clusters.ClusterPlan`` of the
+      cluster-pair radial kernel (``radial_impl='cluster'``), else None.
     """
     num_species: int
     present: Tuple[int, ...]
@@ -82,6 +84,7 @@ class BlockedLayout:
     ang_tier_rows: Optional[Tuple[Tuple[int, ...], ...]] = None
     ang_cell_caps: Optional[Tuple[int, ...]] = None
     ang_cell_grid: Optional[Tuple[int, int, int]] = None
+    cluster_plan: Optional[object] = None
 
     def __post_init__(self):
         if not (len(self.present) == len(self.rad_caps) == len(self.ang_caps)):

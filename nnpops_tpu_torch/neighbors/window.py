@@ -38,9 +38,18 @@ Port notes:
   id of every window lane (``_grid_device_tables``); its adjoint is
   autograd's ``index_add``. ``STENCIL_IMPL``/``MIRROR_IMPL`` of the JAX
   package are TPU A/B knobs and are not ported.
-* Only ``compact_impl='kernel'`` (the left-pack) and the directed
-  ``radial_impl='window'`` are ported; 'mask'/'sort' compaction, the
-  'pair' and 'cluster' radial kernels are ROADMAP B.7, B.9 and B.8.
+* ``select_window(compact_impl=...)``: 'kernel' (the default, the
+  left-pack of slot keys), 'mask' (the slot-space validity mask and the
+  lane-index left-pack, ``ops.cuda_select``) and 'sort' (per-species lane
+  sorts, plain PyTorch: the JAX package's ``lax.sort`` path, the tests'
+  oracle). JAX turns 'mask' into 'sort' where its Pallas left-pack's
+  triangular constant would not fit VMEM (padded widths above 2,048
+  lanes); the port has no such limit and always runs 'mask'.
+* ``window_features(radial_impl=...)``: 'window' (the directed 27-cell
+  window kernel, ``ops.cuda_window``; the selection needs
+  ``need_shift_planes=True``), 'pair' (the symmetric z-pair kernel,
+  ``ops.cuda_zpair``) and 'cluster' (the cluster-pair kernel over a
+  selection built with a ``cluster_plan``, ``neighbors.clusters``).
 * JAX's ``.at[idx].set(..., mode='drop')`` drops writes to the sentinel
   slot ``cc + 1`` (an atom past its cell's capacity). Torch raises on
   out-of-range indices, so the port allocates the sentinel rows and slices
@@ -58,11 +67,13 @@ import torch
 from ..geometry import box_transform
 from ..ops import cuda_aev
 from ..ops.aev_blocked import device_constant
-from ..ops.cuda_select import left_pack
+from ..ops.cuda_select import left_pack, left_pack_lanes, window_mask
 from ..ops.cuda_window import FAR, window_radial, window_radial_plain
+from ..ops.cuda_zpair import pair_radial_aev
 from .blocked import (BlockedLayout, BlockedSelection, _wrap_planes,
                       payload_from_blocked)
 from .cell_list import CellList, _perpendicular_widths
+from .clusters import ClusterSelection, cluster_radial_features, select_clusters
 
 Tensor = torch.Tensor
 
@@ -90,9 +101,12 @@ class WindowSelection(NamedTuple):
     (``rad_caps == ang_caps``), in the slot space of the angular grid
     (``layout.ang_cell_grid``/``ang_cell_caps`` when planned, else the
     radial grid). ``rad_*``: the radial grid's slot assignment.
+    ``clusters``: the cluster selection of ``radial_impl='cluster'``.
     """
     ang: BlockedSelection
-    shift_planes: Tensor       # [3, ncells, kk] radial-grid image shifts
+    # [3, ncells, kk] radial-grid image shifts ([1, 1, 1] zeros unless
+    # built with need_shift_planes).
+    shift_planes: Tensor
     wrap_shift: Tensor         # [N, 3] frozen box wrap per atom
     max_cell_sp: Tensor        # [npres] true max per-(cell, species) occupancy
     # Cell-occupancy bucketing: cells permuted so the (at most
@@ -106,6 +120,7 @@ class WindowSelection(NamedTuple):
     rad_slot_to_atom: Tensor   # [cc] radial slot -> atom (N = empty)
     max_cell_sp_ang: Tensor    # [npres] angular-grid occupancy max
     tier: Optional[AngTier] = None
+    clusters: Optional[ClusterSelection] = None
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +436,13 @@ def _grid_device_tables(grid3: Tuple[int, int, int],
             torch.as_tensor(cand_slot, device=device))
 
 
+@functools.lru_cache(maxsize=16)
+def _device_stencil(grid3: Tuple[int, int, int],
+                    device: torch.device) -> Tensor:
+    """The stencil ``[ncells, 27]`` of ``_window_tables`` on ``device``."""
+    return torch.as_tensor(_window_tables(grid3)[1], device=device)
+
+
 def _shift_planes(f27: Tensor, box: Tensor,
                   cell_caps: Tuple[int, ...]) -> Tensor:
     """Frozen image shift of every window lane ``[3, ncells, kk]``."""
@@ -586,21 +608,108 @@ def _build_tier_packed(nbr: Tensor, mask: Tensor, counts: Tensor,
                    concat_pos=torch.as_tensor(concat_pos, device=dev))
 
 
+def _compact_window_mask(cc: int, cell_caps: Tuple[int, ...],
+                         a_caps: Tuple[int, ...], cand_cells: Tensor,
+                         pos_slots: Tensor, slot_of_sorted: Tensor,
+                         cell_sorted: Tensor, stencil: Tensor, w2: float):
+    """The 'mask' compaction: the validity test runs in slot space (one
+    mask kernel over the cells' windows, no per-atom candidate gather),
+    each atom takes its slot's mask row, and the left-pack packs static
+    block-local lane indices. Lane l of species block s is stencil entry
+    ``l // cs`` at slot offset ``l % cs``, so slot ids are rebuilt
+    arithmetically. The same pairs, lane order and counts as the 'kernel'
+    compaction. Returns (nbr [N, Kat], mask, counts [N, npres], ang_in_rad)
+    in sorted row space."""
+    c = sum(cell_caps)
+    ncells = cand_cells.shape[1]
+    centers = pos_slots.reshape(ncells, c, 3)
+    m_slots = window_mask(cand_cells[0], cand_cells[1], cand_cells[2],
+                          centers, w2, cell_caps)
+    # An atom past its cell's capacity (slot cc + 1) reads a clamped row:
+    # its results are invalid anyway, and the occupancy count reports it.
+    m_atom = m_slots.reshape(ncells * c, 27 * c).index_select(
+        0, torch.clamp(slot_of_sorted, max=ncells * c - 1))
+    lanes, counts = left_pack_lanes(m_atom, [27 * cs for cs in cell_caps],
+                                    a_caps)
+    stencil_rows = stencil.index_select(0, cell_sorted)     # [N, 27]
+    offs = np.cumsum((0,) + tuple(cell_caps))[:-1]
+    krt = int(sum(a_caps))
+    nbrs, masks, airs = [], [], []
+    ro = 0
+    for off, cs, cap in zip(offs, cell_caps, a_caps):
+        ln = lanes[:, ro:ro + cap].long()
+        m = ln >= 0
+        li = torch.where(m, ln, 0)
+        entry = li // cs                       # block-local stencil entry
+        slot = (torch.gather(stencil_rows, 1, entry) * c
+                + (int(off) + li - entry * cs))
+        nbrs.append(torch.where(m, slot, cc))
+        masks.append(m)
+        airs.append(torch.where(
+            m, torch.arange(ro, ro + cap, device=lanes.device)[None], krt))
+        ro += cap
+    return (torch.cat(nbrs, 1), torch.cat(masks, 1), counts,
+            torch.cat(airs, 1))
+
+
+def _compact_window(cc: int, cell_caps: Tuple[int, ...],
+                    a_caps: Tuple[int, ...], valid: Tensor,
+                    cand_slot_atom: Tensor):
+    """The 'sort' compaction (the JAX package's ``lax.sort`` reference
+    path): per species block, the valid candidates' slot ids sorted
+    ascending and cut to the cap; the counts are the blocks' valid lanes.
+    Lanes come out slot-ascending, not entry-major. Returns (nbr, mask,
+    counts, ang_in_rad) in sorted row space."""
+    big = 2 ** 31 - 1
+    krt = int(sum(a_caps))
+    nbr, masks, counts, air = [], [], [], []
+    lo, ro = 0, 0
+    for cs, cap in zip(cell_caps, a_caps):
+        w = 27 * cs
+        v = valid[:, lo:lo + w]
+        counts.append(v.sum(1, dtype=torch.int32))
+        key = torch.where(v, cand_slot_atom[:, lo:lo + w], big)
+        key = torch.sort(key, dim=1).values[:, :cap]
+        m = key < big
+        nbr.append(torch.where(m, key, cc))
+        masks.append(m)
+        air.append(torch.where(
+            m, torch.arange(ro, ro + cap, device=valid.device)[None], krt))
+        lo += w
+        ro += cap
+    return (torch.cat(nbr, 1), torch.cat(masks, 1), torch.stack(counts, 1),
+            torch.cat(air, 1))
+
+
+COMPACT_IMPLS = ('kernel', 'mask', 'sort')
+
+
 @torch.no_grad()
 def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
                   species, layout: BlockedLayout,
                   radial_cutoff: float, angular_cutoff: float,
                   grouping_order: Optional[np.ndarray] = None,
                   present_counts: Optional[Tuple[int, ...]] = None,
-                  ) -> WindowSelection:
+                  need_shift_planes: bool = False,
+                  cluster_plan=None,
+                  compact_impl: str = 'kernel') -> WindowSelection:
     """Freeze a window-mode selection.
 
     ``layout``: ``cell_caps``/``cell_grid`` drive the radial grid's slot
     assignment, ``ang_cell_grid``/``ang_cell_caps`` (when planned) a smaller
-    angular candidate grid, ``ang_caps`` the left-pack. With
+    angular candidate grid, ``ang_caps`` the angular compaction. With
     ``grouping_order``/``present_counts`` (the model's species grouping) and
     a layout that plans tiers, the angular rows are tiered.
+    ``need_shift_planes``: build the radial grid's image-shift planes (only
+    the directed 'window' radial kernel reads them). ``cluster_plan``: also
+    freeze a cluster selection (``radial_impl='cluster'``).
+    ``compact_impl``: 'kernel' (the left-pack of slot keys), 'mask' (the
+    slot-space mask and the lane-index left-pack; the same lists) or 'sort'
+    (per-species lane sorts; the same sets, slot-ascending lanes).
     """
+    if compact_impl not in COMPACT_IMPLS:
+        raise ValueError(f'compact_impl={compact_impl!r} not in '
+                         f'{COMPACT_IMPLS}')
     _check_window_config(cell_list, layout)
     positions = positions.detach()
     box = box.detach()
@@ -641,8 +750,11 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
         n_big_true = torch.zeros((), dtype=torch.int64, device=dev)
     cell_inv_perm = torch.empty_like(cell_perm).index_copy_(
         0, cell_perm, torch.arange(ncells, device=dev))
-    f27_r, _ = _grid_device_tables(grid_r, cell_caps, dev)
-    shift_planes = _shift_planes(f27_r, box, cell_caps)
+    if need_shift_planes:
+        f27_r, _ = _grid_device_tables(grid_r, cell_caps, dev)
+        shift_planes = _shift_planes(f27_r, box, cell_caps)
+    else:
+        shift_planes = positions.new_zeros(1, 1, 1)
 
     # ---- Angular grid: candidate window, validity, left-pack.
     if layout.ang_cell_grid is not None and layout.ang_cell_caps is not None:
@@ -669,19 +781,29 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
     skin = cell_list.cutoff - radial_cutoff
     ang_window = angular_cutoff + max(skin, 0.0)
 
-    cand_pos = cand_cells.permute(1, 0, 2)[cell_sorted]     # [N, 3, kk_a]
-    d = cand_pos - pos_sorted[:, :, None]
-    d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-    cand_slot_atom = cand_slot[cell_sorted]                  # [N, kk_a]
-    valid = ((d2 < ang_window * ang_window)
-             & (cand_slot_atom != slot_of_sorted[:, None]))
-    keys = torch.where(valid, cand_slot_atom, -1).to(torch.int32)
     a_caps = tuple(layout.ang_caps)
-    packed, counts = left_pack(keys, [27 * cs for cs in a_ccaps], a_caps)
-    m = packed >= 0
-    nbr = torch.where(m, packed.long(), cc_a)
-    krt = int(sum(a_caps))
-    air = torch.where(m, torch.arange(krt, device=dev)[None], krt)
+    w2 = ang_window * ang_window
+    if compact_impl == 'mask':
+        nbr, m, counts, air = _compact_window_mask(
+            cc_a, a_ccaps, a_caps, cand_cells, pos_slots, slot_of_sorted,
+            cell_sorted, _device_stencil(a_grid, dev), w2)
+    else:
+        cand_pos = cand_cells.permute(1, 0, 2)[cell_sorted]  # [N, 3, kk_a]
+        d = cand_pos - pos_sorted[:, :, None]
+        d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        cand_slot_atom = cand_slot[cell_sorted]              # [N, kk_a]
+        valid = (d2 < w2) & (cand_slot_atom != slot_of_sorted[:, None])
+        if compact_impl == 'kernel':
+            keys = torch.where(valid, cand_slot_atom, -1).to(torch.int32)
+            packed, counts = left_pack(keys, [27 * cs for cs in a_ccaps],
+                                       a_caps)
+            m = packed >= 0
+            nbr = torch.where(m, packed.long(), cc_a)
+            krt = int(sum(a_caps))
+            air = torch.where(m, torch.arange(krt, device=dev)[None], krt)
+        else:
+            nbr, m, counts, air = _compact_window(cc_a, a_ccaps, a_caps,
+                                                  valid, cand_slot_atom)
     max_ang = torch.max(counts, 0).values.long()
     bsel = BlockedSelection(
         order=order, slot_of_sorted=slot_of_sorted, inv_order=inv_order,
@@ -697,13 +819,17 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
                                   np.asarray(grouping_order),
                                   tuple(int(x) for x in present_counts),
                                   layout)
+    clusters = None
+    if cluster_plan is not None:
+        clusters = select_clusters(positions, box, species, cluster_plan,
+                                   radial_cutoff, skin=skin)
     return WindowSelection(
         ang=bsel, shift_planes=shift_planes, wrap_shift=wrap_shift,
         max_cell_sp=max_cell_sp, cell_perm=cell_perm,
         cell_inv_perm=cell_inv_perm, n_big_true=n_big_true,
         rad_order=order_r, rad_slot_of_sorted=slot_r,
         rad_slot_of_atom=rad_slot_of_atom, rad_slot_to_atom=rad_slot_to_atom,
-        max_cell_sp_ang=max_cell_sp_ang, tier=tier)
+        max_cell_sp_ang=max_cell_sp_ang, tier=tier, clusters=clusters)
 
 
 # ---------------------------------------------------------------------------
@@ -749,10 +875,14 @@ def _tiered_angular(positions: Tensor, box: Tensor, wsel: WindowSelection,
     return t.row_atom, torch.cat(angs, 0).index_select(0, t.concat_pos)
 
 
+RADIAL_IMPLS = ('window', 'pair', 'cluster')
+
+
 def window_features(cell_list: CellList, positions: Tensor, box: Tensor,
                     wsel: WindowSelection, basis, layout: BlockedLayout,
                     atom_order: Optional[Tensor] = None,
-                    plain: bool = False) -> Tensor:
+                    plain: bool = False,
+                    radial_impl: str = 'window') -> Tensor:
     """Full AEV ``[N, aev_length]`` (radial [S*R] | angular [P*A]) for
     window mode, differentiable in ``positions``.
 
@@ -760,7 +890,14 @@ def window_features(cell_list: CellList, positions: Tensor, box: Tensor,
     grouping); default the original order. With tiers the rows come out in
     the tiers' order of that grouping instead (species blocks preserved).
     ``plain``: run the kernels' plain PyTorch versions on any device (the
-    reference a step through the kernels is held against)."""
+    reference a step through the kernels is held against).
+    ``radial_impl``: 'window' (the directed 27-cell window kernel; it
+    honours cell-occupancy bucketing and needs a selection built with
+    ``need_shift_planes=True``), 'pair' (the symmetric z-pair kernel, each
+    atom pair's Gaussians evaluated once) or 'cluster' (the cluster-pair
+    kernel; needs a selection built with the layout's ``cluster_plan``)."""
+    if radial_impl not in RADIAL_IMPLS:
+        raise ValueError(f'radial_impl={radial_impl!r} not in {RADIAL_IMPLS}')
     n = positions.shape[0]
     ncells = cell_list.num_cells
     cell_caps = tuple(layout.cell_caps)
@@ -784,6 +921,25 @@ def window_features(cell_list: CellList, positions: Tensor, box: Tensor,
                                    num_slots=cc_a)
         angular = _angular(pay.rad_deltas, pay.ang_mask, basis,
                            ang_as_rad_layout(layout), plain)
+
+    if radial_impl == 'cluster':
+        if wsel.clusters is None or layout.cluster_plan is None:
+            raise ValueError("radial_impl='cluster' needs a selection built "
+                             'with a cluster_plan')
+        radial_rows = cluster_radial_features(
+            positions, wsel.clusters, layout.cluster_plan, basis, row_atom,
+            plain=plain)
+        return _expand_radial_rows(radial_rows, angular, layout, basis)
+    if radial_impl == 'pair':
+        rad_slots = pair_radial_aev(
+            _radial_slots(positions, wsel), box, cell_list.ncells, cell_caps,
+            basis.radial_cutoff, basis.radial_eta, basis.radial_rs,
+            basis.torchani, plain=plain)
+        return _radial_rows_from_slots(rad_slots, angular, wsel, layout,
+                                       basis, cc, row_atom)
+    if wsel.shift_planes.shape[1] != ncells:
+        raise ValueError("radial_impl='window' needs a selection built with "
+                         'need_shift_planes=True')
 
     # ---- Radial: the 27-cell window of the radial grid, capacity-free.
     win, centers = radial_window_inputs(cell_list, positions, wsel, layout)
@@ -829,14 +985,20 @@ def radial_window_inputs(cell_list: CellList, positions: Tensor,
     cells' own slots as centers ``[ncells, c, 3]``."""
     grid = tuple(int(x) for x in cell_list.ncells)
     cell_caps = tuple(layout.cell_caps)
-    p_w = positions - wsel.wrap_shift
-    p_ext = torch.cat([p_w, p_w.new_full((1, 3), FAR)])
-    slots = p_ext.index_select(0, wsel.rad_slot_to_atom)        # [cc, 3]
+    slots = _radial_slots(positions, wsel)                      # [cc, 3]
     _, cand_slot = _grid_device_tables(grid, cell_caps, positions.device)
     win = (slots.t().index_select(1, cand_slot.reshape(-1))
            .reshape(3, cell_list.num_cells, cand_slot.shape[1])
            + wsel.shift_planes)
     return win, slots.reshape(cell_list.num_cells, sum(cell_caps), 3)
+
+
+def _radial_slots(positions: Tensor, wsel: WindowSelection) -> Tensor:
+    """The radial grid's slot positions ``[cc, 3]`` in the frozen wrap,
+    empty slots at FAR (one ``index_select``, adjoint ``index_add``)."""
+    p_w = positions - wsel.wrap_shift
+    p_ext = torch.cat([p_w, p_w.new_full((1, 3), FAR)])
+    return p_ext.index_select(0, wsel.rad_slot_to_atom)
 
 
 def _radial_rows_from_slots(rad_slots: Tensor, angular: Tensor,

@@ -135,18 +135,27 @@ def test_check_overflow_raises_on_shrunk_capacity(system):
 
 
 def test_window_paths_raise_not_implemented(system):
-    """The window path itself is ported (``test_torch_window_slice.py``);
-    its 'cluster' and 'pair' radial kernels and the payload path are not."""
+    """The window path and its 'cluster' and 'pair' radial kernels are
+    ported (``test_torch_window_slice.py``, ``test_torch_zpair.py``,
+    ``test_torch_clusters.py``) and follow the JAX package's switches: the
+    radial switch is ignored outside window mode and sets
+    ``window_radial`` inside it. The payload path is not ported."""
     water, basis, _, _ = system
     base = TModel.from_atomic_numbers(water.atomic_numbers, basis)
     assert base.with_blocked_layout(water.positions, water.box,
                                     impl='window').aev_impl == 'window'
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        base.with_blocked_layout(water.positions, water.box, impl='pallas',
-                                 radial_impl='cluster')
+    ignored = base.with_blocked_layout(water.positions, water.box,
+                                       impl='pallas', radial_impl='cluster')
+    assert (ignored.aev_impl, ignored.window_radial) == ('pallas', 'window')
+    paired = base.with_blocked_layout(water.positions, water.box,
+                                      impl='window', radial_impl='pair')
+    jpaired = JModel.from_atomic_numbers(
+        water.atomic_numbers, basis).with_blocked_layout(
+            water.positions, water.box, impl='window', radial_impl='pair')
+    assert paired.window_radial == jpaired.window_radial == 'pair'
     for radial in ('cluster', 'pair'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            dataclasses.replace(base, window_radial=radial)
+        assert dataclasses.replace(base, window_radial=radial
+                                   ).window_radial == radial
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         base.select(torch.tensor(water.positions), torch.tensor(water.box), None)
 

@@ -26,10 +26,15 @@ from nnpops_tpu_torch.neighbors.blocked import (payload_from_blocked,
                                                 select_blocked)
 from nnpops_tpu_torch.neighbors.cell_list import CellList
 from nnpops_tpu_torch.neighbors.window import radial_window_inputs
-from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_cfconv, cuda_nn,
-                                  cuda_pme, cuda_select, cuda_window)
+from nnpops_tpu_torch.neighbors import clusters as clusters_mod
+from nnpops_tpu_torch.neighbors import window as window_mod
+from nnpops_tpu_torch.neighbors.window import _radial_slots, select_window
+from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_cfconv,
+                                  cuda_cluster, cuda_nn, cuda_pme,
+                                  cuda_select, cuda_window, cuda_zpair)
 from nnpops_tpu_torch.ops.cfconv import init_cfconv
 from nnpops_tpu_torch.ops.pme import PME
+from nnpops_tpu_torch.profile_step import recording
 from nnpops_tpu_torch.utils import make_water_box
 
 pytestmark = pytest.mark.cuda
@@ -454,3 +459,184 @@ def test_cfconv_stack_kernel_matches_plain(dev):
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
     for a, b in zip(got[1:], want[1:]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The window path's opt-in switches: the z-pair and cluster-pair radial
+# kernels and the 'mask' compaction.
+# ---------------------------------------------------------------------------
+
+def assert_normwise(got, want, rtol):
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+def test_mask_kernels_match_plain(dev):
+    """The mask kernel and the lane left-pack on water(150)'s 'mask'
+    selection equal their plain versions exactly, and the selection equals
+    the default 'kernel' selection."""
+    model, cl, pos, box, k_sel = window_setup(dev)
+    g = model.grouping
+    layout = model.blocked_layout
+    kw = dict(species=model.species_array, layout=layout,
+              radial_cutoff=model.basis.radial_cutoff,
+              angular_cutoff=model.basis.angular_cutoff,
+              grouping_order=g.order,
+              present_counts=tuple(g.counts[s] for s in layout.present))
+    masks, packs = [], []
+    before = dict(_kernels.LAUNCHES)
+    with recording(window_mod, 'window_mask', masks), \
+            recording(window_mod, 'left_pack_lanes', packs):
+        m_sel = select_window(cl, pos, box, compact_impl='mask', **kw)
+    assert _kernels.LAUNCHES['window_mask'] == before['window_mask'] + 1
+    assert (_kernels.LAUNCHES['left_pack_lanes']
+            == before['left_pack_lanes'] + 1)
+    assert _kernels.LAUNCHES['left_pack'] == before['left_pack']
+    cx, cy, cz, centers, w2, caps = masks[0][0]
+    m_k = cuda_select.window_mask(cx, cy, cz, centers, w2, caps)
+    assert torch.equal(m_k, cuda_select.window_mask_plain(cx, cy, cz, centers,
+                                                          w2, caps))
+    m_atom, widths, a_caps = packs[0][0]
+    got = cuda_select.left_pack_lanes(m_atom, widths, a_caps)
+    want = cuda_select.left_pack_lanes_plain(m_atom, widths, a_caps)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for f in ('nbr_rad', 'rad_mask', 'max_rad', 'max_ang', 'ang_in_rad'):
+        assert torch.equal(getattr(m_sel.ang, f), getattr(k_sel.ang, f)), f
+
+
+def test_left_pack_lanes_kernel_matches_plain(dev):
+    """Random masks, rows far over the caps among them: packed lanes and
+    counts equal the plain version's exactly."""
+    rng = np.random.RandomState(7)
+    widths, caps = (486, 297, 40), (32, 16, 40)
+    mask = rng.rand(2601, sum(widths)) < rng.uniform(0, 0.12, (2601, 1))
+    mask = torch.tensor(mask, device=dev)
+    got = cuda_select.left_pack_lanes(mask, widths, caps)
+    want = cuda_select.left_pack_lanes_plain(mask, widths, caps)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((got[1] > torch.tensor(caps, device=dev)).any())
+
+
+def pair_setup(dev, molecules=150):
+    model, cl, pos, box, _ = window_setup(dev, molecules)
+    pair = dataclasses.replace(model, window_radial='pair')
+    sel = pair.select(pos, box, cl)
+    grid = tuple(int(x) for x in cl.ncells)
+    caps = tuple(model.blocked_layout.cell_caps)
+    return pair, cl, pos, box, sel, grid, caps
+
+
+def test_pair_radial_kernel_matches_plain(dev):
+    pair, cl, pos, box, sel, grid, caps = pair_setup(dev)
+    basis = pair.basis
+    ins = cuda_zpair.pair_inputs(_radial_slots(pos, sel), box, grid, caps)
+    args = (basis.radial_cutoff, basis.radial_eta, basis.radial_rs, grid,
+            caps, basis.torchani)
+    ins_k = [t.detach().clone().requires_grad_(True) for t in ins]
+    ins_p = [t.detach().clone().requires_grad_(True) for t in ins]
+    before = dict(_kernels.LAUNCHES)
+    out_k = cuda_zpair.pair_radial(*ins_k, *args)
+    out_p = cuda_zpair.pair_radial_plain(*ins_p, *args)
+    for a, b in zip(out_k, out_p):
+        assert_normwise(a.detach(), b.detach(), 1e-5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = [torch.randn(o.shape, generator=gen, device=dev) for o in out_p]
+    g_k = torch.autograd.grad(out_k, ins_k, g)
+    g_p = torch.autograd.grad(out_p, ins_p, g)
+    for a, b in zip(g_k, g_p):
+        assert_normwise(a, b, 1e-4)
+    assert _kernels.LAUNCHES['pair_radial_fwd'] == before['pair_radial_fwd'] + 1
+    assert _kernels.LAUNCHES['pair_radial_bwd'] == before['pair_radial_bwd'] + 1
+    # Deterministic: no atomics, every sum in a fixed order.
+    spec = cuda_zpair._spec(grid, caps, float(basis.radial_cutoff),
+                            tuple(basis.radial_eta), tuple(basis.radial_rs),
+                            bool(basis.torchani))
+    raw = [t.detach().contiguous() for t in ins]
+    for a, b in zip(cuda_zpair.pair_radial_fwd_cuda(*raw, spec), out_k):
+        assert torch.equal(a, b.detach())
+    again = cuda_zpair.pair_radial_bwd_cuda(*raw, *g, spec)
+    for a, b in zip(again, cuda_zpair.pair_radial_bwd_cuda(*raw, *g, spec)):
+        assert torch.equal(a, b)
+
+
+def cluster_setup(dev, molecules=1000):
+    water = make_water_box(molecules, seed=0)
+    model = ANIModel.from_atomic_numbers(
+        water.atomic_numbers, ANIBasis.ani2x(), nn_dtype='bfloat16',
+        nn_impl='fused').with_blocked_layout(
+            water.positions, water.box, margin=1.15, impl='window',
+            skin=0.25, radial_impl='cluster')
+    assert model.window_radial == 'cluster'
+    assert model.blocked_layout.cluster_plan is not None
+    cl = model.create_cell_list(water.box, skin=0.25)
+    pos = torch.tensor(water.positions, device=dev)
+    box = torch.tensor(water.box, device=dev)
+    return model, cl, pos, box, model.select(pos, box, cl)
+
+
+def test_cluster_radial_kernel_matches_plain(dev):
+    """Per i-species on water(1000)'s cluster selection: forward,
+    backward, and two launches bitwise equal."""
+    model, cl, pos, box, sel = cluster_setup(dev)
+    params = init_ani_params(torch.Generator(device=dev).manual_seed(0),
+                             model.basis, num_models=2,
+                             layer_dims=[(32, 24, 16)] * 7, device=dev)
+    calls = []
+    with recording(clusters_mod, 'cluster_radial', calls):
+        model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    assert len(calls) == 2
+    for args, _ in calls:
+        planes = [t.detach().contiguous() for t in args[:4]]
+        rest = args[4:]
+        ins_k = [t.clone().requires_grad_(True) for t in planes]
+        ins_p = [t.clone().requires_grad_(True) for t in planes]
+        out_k = cuda_cluster.cluster_radial(*ins_k, *rest)
+        out_p = cuda_cluster.cluster_radial_plain(*ins_p, *rest)
+        assert_normwise(out_k.detach(), out_p.detach(), 1e-5)
+        g = torch.randn(out_p.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+        g_k = torch.autograd.grad(out_k, ins_k, g)
+        g_p = torch.autograd.grad(out_p, ins_p, g)
+        for a, b in zip(g_k, g_p):
+            assert_normwise(a, b, 1e-4)
+        spec = cuda_cluster._spec(
+            int(rest[3]), tuple(rest[4]), int(rest[5]), float(rest[0]),
+            tuple(rest[1]), tuple(rest[2]), bool(rest[6]))
+        assert torch.equal(cuda_cluster.cluster_radial_fwd_cuda(*planes, spec),
+                           out_k.detach())
+        first = cuda_cluster.cluster_radial_bwd_cuda(*planes, g, spec)
+        for a, b in zip(first, cuda_cluster.cluster_radial_bwd_cuda(
+                *planes, g, spec)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('radial', ['pair', 'cluster'])
+def test_opt_in_radial_step_matches_plain(dev, radial):
+    """One step of the pair (water(150)) or cluster (water(1000)) path
+    through the kernels against the plain step and the window step."""
+    if radial == 'pair':
+        model, cl, pos, box, sel = pair_setup(dev)[:5]
+    else:
+        model, cl, pos, box, sel = cluster_setup(dev)
+    model.check_overflow(pos, box, cl, sel)
+    params = init_ani_params(torch.Generator(device=dev).manual_seed(0),
+                             model.basis, device=dev)
+    _kernels.reset_launch_counts()
+    e_k, f_k = model.energy_and_forces_from_selection(params, pos, box, cl,
+                                                      sel)
+    species = 2 if radial == 'cluster' else 1
+    assert _kernels.LAUNCHES[f'{radial}_radial_fwd'] == species
+    assert _kernels.LAUNCHES[f'{radial}_radial_bwd'] == species
+    assert _kernels.LAUNCHES['window_radial_fwd'] == 0
+    before = dict(_kernels.LAUNCHES)
+    e_p, f_p = plain_energy_and_forces(model, params, pos, box, cl, sel)
+    assert dict(_kernels.LAUNCHES) == before
+    np.testing.assert_allclose(float(e_k), float(e_p), rtol=1e-3)
+    assert float((f_k - f_p).abs().max()) <= 5e-3 * float(f_p.abs().max())
+    window = dataclasses.replace(model, window_radial='window')
+    e_w, f_w = window.energy_and_forces_from_selection(
+        params, pos, box, cl, window.select(pos, box, cl))
+    np.testing.assert_allclose(float(e_k), float(e_w), rtol=1e-3)
+    assert float((f_k - f_w).abs().max()) <= 5e-3 * float(f_w.abs().max())

@@ -59,8 +59,11 @@ def test_import_builds_nothing():
     from nnpops_tpu_torch import _kernels
     assert _kernels._lib is None
     assert set(_kernels.LAUNCHES) == {'angular_aev_fwd', 'angular_aev_bwd',
-                                      'cfconv_bwd',
+                                      'cfconv_bwd', 'cluster_radial_fwd',
+                                      'cluster_radial_bwd',
                                       'fused_nn_fwd', 'fused_nn_fwdgrad',
-                                      'left_pack', 'pme_window_fwd',
-                                      'pme_window_bwd', 'window_radial_fwd',
+                                      'left_pack', 'left_pack_lanes',
+                                      'pair_radial_fwd', 'pair_radial_bwd',
+                                      'pme_window_fwd', 'pme_window_bwd',
+                                      'window_mask', 'window_radial_fwd',
                                       'window_radial_bwd'}

@@ -328,13 +328,26 @@ def test_window_wrapped_positions_match_pallas(system, port_side):
 
 
 def test_other_window_radial_kernels_raise(system, port_side):
+    """The 'pair' and 'cluster' switches build the JAX package's
+    configuration: replacing ``window_radial`` selects without shift planes
+    (pair) or asks for a cluster selection (cluster); at water(150) the
+    cluster planner refuses the box and ``with_blocked_layout`` keeps
+    'window', as JAX does. An unknown kernel name raises."""
     water, _, _ = system
-    tm, _, _, _, _ = port_side
-    with pytest.raises(NotImplementedError, match='B.9'):
-        dataclasses.replace(tm, window_radial='pair')
-    with pytest.raises(NotImplementedError, match='B.8'):
-        dataclasses.replace(tm, window_radial='cluster')
-    with pytest.raises(NotImplementedError, match='B.8'):
-        t_model(water).with_blocked_layout(water.positions, water.box,
-                                           impl='window',
-                                           radial_impl='cluster')
+    tm, tcl, tpos, tbox, _ = port_side
+    pair = dataclasses.replace(tm, window_radial='pair')
+    assert tuple(pair.select(tpos, tbox, tcl).shift_planes.shape) == (1, 1, 1)
+    cluster = dataclasses.replace(tm, window_radial='cluster')
+    assert cluster.select(tpos, tbox, tcl).clusters is None   # no plan
+    kept = t_model(water).with_blocked_layout(water.positions, water.box,
+                                              margin=MARGIN, impl='window',
+                                              skin=SKIN,
+                                              radial_impl='cluster')
+    jkept = JModel.from_atomic_numbers(
+        water.atomic_numbers, JBasis.ani2x()).with_blocked_layout(
+            water.positions, water.box, margin=MARGIN, impl='window',
+            skin=SKIN, radial_impl='cluster')
+    assert kept.window_radial == jkept.window_radial == 'window'
+    assert kept.blocked_layout.cluster_plan is None
+    with pytest.raises(ValueError, match='window_radial'):
+        dataclasses.replace(tm, window_radial='dense')
