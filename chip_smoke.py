@@ -13,20 +13,27 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    ``check_overflow`` after each block, and the launch counts;
 4. the window configuration at 2,601 atoms, the main path: every kernel
    it launches (left-pack, window radial forward and backward, angular
-   forward and backward per row tier, fused NN forward and fwdgrad) against
+   forward and backward per row tier, the fused ensemble's stage kernels:
+   layer1, hidden and dx, one launch of each for every species) against
    its plain version at the shapes the path gives it, recorded from one
    selection and one step, plus the window radial kernel with forced
    cell-occupancy bucketing; each kernel timed on the device (20 calls
    captured in a CUDA graph, replayed between CUDA events) beside its plain
-   version (CUDA events around 20 eager calls) and its bound;
+   version (CUDA events around 20 eager calls), its bound and, for the
+   ensemble's two GEMM stages, cuBLAS bf16 products at their shapes (the
+   yardstick; the port never calls them); the ensemble's fwd and fwdgrad
+   also whole, graph and eager, against the per-species oracle, and two
+   launches bitwise equal;
 5. the window main path: 2 selection blocks x 8 force steps as in 3, the
    final frame's energy without gradients, the launch counts (every step
-   launches the window radial forward and backward and the angular kernel
-   once per tier, every selection the left-pack), and one step against the
-   same step through the plain versions;
+   launches the window radial forward and backward, the angular kernel
+   once per tier and each fwdgrad stage of the ensemble exactly once,
+   every selection the left-pack, the final energy each fwd stage once),
+   and one step against the same step through the plain versions;
 6. one selection and 4 steps of the window path at 26,010 atoms, where the
-   planner turns on bucketing and four angular tiers: finite output, no
-   overflow, ms/step;
+   planner turns on bucketing and four angular tiers: the ensemble's
+   stage kernels checked and timed as in 4 at its shapes, finite output,
+   no overflow, ms/step;
 7. BASELINE config 5, ANI + PME Langevin MD (``models.combined.ANIWithPME``
    with ``md.integrators``), on the JAX example's settings
    (``examples/run_configs.py`` ``config5``: window ANI-2x, bf16 fused
@@ -168,8 +175,13 @@ CFCONV_PAIR_ATOMS = 1000
 REPLACES = {
     'angular_aev_fwd': 'nnpops_tpu/ops/pallas_aev.py:614',
     'angular_aev_bwd': 'nnpops_tpu/ops/pallas_aev.py:626',
-    'fused_nn_fwd': 'nnpops_tpu/ops/pallas_nn.py:183',
-    'fused_nn_fwdgrad': 'nnpops_tpu/ops/pallas_nn.py:194',
+    # B.4's stages: the fwd pl.pallas_call (:183) runs as layer1 + hidden,
+    # the fwdgrad one (:194) as layer1 + hidden + dx.
+    'fused_nn_fwd_layer1': 'nnpops_tpu/ops/pallas_nn.py:183',
+    'fused_nn_fwd_hidden': 'nnpops_tpu/ops/pallas_nn.py:183',
+    'fused_nn_fwdgrad_layer1': 'nnpops_tpu/ops/pallas_nn.py:194',
+    'fused_nn_fwdgrad_hidden': 'nnpops_tpu/ops/pallas_nn.py:194',
+    'fused_nn_fwdgrad_dx': 'nnpops_tpu/ops/pallas_nn.py:194',
     'left_pack': 'nnpops_tpu/ops/pallas_select.py:139',
     'window_radial_fwd': 'nnpops_tpu/ops/pallas_window.py:361',
     'window_radial_bwd': 'nnpops_tpu/ops/pallas_window.py:378',
@@ -350,49 +362,169 @@ def angular_entries(deltas, mask, basis, layout, width):
     return fwd, bwd
 
 
-def nn_entries(params, feat, counts):
-    """(fwd, fwdgrad) entries of the fused-NN kernel over the species row
-    blocks of species-grouped AEV rows."""
-    fwds, grads = [], []
-    start = 0
-    for s, count in enumerate(counts):
-        if not count:
-            continue
-        net = params.ensemble.networks[s]
-        x = feat[start:start + count].contiguous()
-        start += count
-        packed = cuda_nn.pack_species_net(net)
-        e_k, _ = cuda_nn.launch_packed(x, packed, False)
-        e_p, _ = cuda_nn.fused_species_net_plain(x, net)
-        # Normwise: a bf16 operand can round the other way when the f32
-        # accumulation order differs, which moves a near-zero atom's energy
-        # by far more than 1e-3 of itself but not of the block's scale.
-        check_normwise('fused nn fwd', e_k, e_p, rtol=1e-3)
-        e_kg, dx_k = cuda_nn.launch_packed(x, packed, True)
-        e_pg, dx_p = cuda_nn.fused_species_net_plain(x, net, with_grad=True)
-        check_normwise('fused nn fwdgrad e', e_kg, e_pg, rtol=1e-3)
-        check_normwise('fused nn fwdgrad dx', dx_k, dx_p, rtol=1e-2)
-        macs = net.weights[0].shape[0] * sum(w.shape[1] * w.shape[2]
-                                             for w in net.weights)
-        w_bytes = 2 * macs + 4 * sum(b.numel() for b in net.biases)
-        flops = 2 * count * macs
-        fwds.append(entry(
-            'fused_nn_fwd', 'fused_nn', max_abs(e_k, e_p),
-            lambda: cuda_nn.launch_packed(x, packed, False),
-            lambda: cuda_nn.fused_species_net_plain(x, net),
-            x.numel() * 4 + w_bytes + count * 4, flops, BF16_OPS_PER_S))
-        grads.append(entry(
-            'fused_nn_fwdgrad', 'fused_nn',
-            max(max_abs(e_kg, e_pg), max_abs(dx_k, dx_p)),
-            lambda: cuda_nn.launch_packed(x, packed, True),
-            lambda: cuda_nn.fused_species_net_plain(x, net, True),
-            2 * x.numel() * 4 + w_bytes + count * 4, 2 * flops,
-            BF16_OPS_PER_S))
-        print(f'fused nn rows {count} dims {packed.dims}: max|de| '
-              f'{max_abs(e_kg, e_pg):.3g} (max|e| {float(e_pg.abs().max()):.3g})'
-              f' max|ddx| {max_abs(dx_k, dx_p):.3g} (max|dx| '
-              f'{float(dx_p.abs().max()):.3g})')
-    return merge(fwds), merge(grads)
+FUSED_GRAD = ('fused_nn_fwdgrad_layer1', 'fused_nn_fwdgrad_hidden',
+              'fused_nn_fwdgrad_dx')
+FUSED_FWD = ('fused_nn_fwd_layer1', 'fused_nn_fwd_hidden')
+
+
+def fused_launches(steps, fwd_calls):
+    """The ensemble's launches on a path: one launch set for every species
+    a force step, and one forward set a call without gradients."""
+    need = {k: steps for k in FUSED_GRAD}
+    need.update({k: fwd_calls for k in FUSED_FWD})
+    return need
+
+
+def require_exact(label, launches, need):
+    for name, n in need.items():
+        if launches[name] != n:
+            raise AssertionError(f'{label}: {name} launched {launches[name]}'
+                                 f' times, expected {n}')
+
+
+def nn_entries(ens, feat, counts, label, calls=20):
+    """Entries of the fused ensemble's stage kernels on species-grouped AEV
+    rows (one launch set for every species): each stage kernel against its
+    plain version on the same inputs, the whole fwd and fwdgrad against
+    the per-species oracle, two launches bitwise equal, and the times of
+    the stages and of the whole function."""
+    counts = tuple(int(c) for c in counts)
+    n = sum(counts)
+    pe = cuda_nn.pack_ensemble(ens)
+    x = feat[:n].detach().contiguous()
+    x16 = cuda_nn.to_bf16_input(x, pe)
+    rows = cuda_nn.species_rows(pe, counts)
+    ws = cuda_nn.workspace(pe, counts, True)
+    buf = torch.empty(ws.nbytes, dtype=torch.uint8, device=DEV)
+    h1, d1, g1, epart, cnt = cuda_nn.workspace_views(buf, ws, pe, n)
+    h1_p, d1_p = cuda_nn.layer1_plain(x16, pe, counts, True)
+    e_p, g1_p = cuda_nn.hidden_plain(h1_p, d1_p, pe, counts, True)
+    dx_p = cuda_nn.dx_plain(g1_p, pe, counts)
+
+    def cols(a, b, name, rtol):
+        err = 0.0
+        for _, r0, r1, ksp in rows:
+            check_normwise(f'{label} {name}', a[r0:r1, :ksp].float(),
+                           b[r0:r1, :ksp].float(), rtol)
+            err = max(err, max_abs(a[r0:r1, :ksp].float(),
+                                   b[r0:r1, :ksp].float()))
+        return err
+
+    # Each stage kernel on its plain version's inputs. Normwise gates: a
+    # bf16 result can round the other way when the f32 accumulation order
+    # differs.
+    cuda_nn.layer1_cuda(x16, pe, counts, h1, d1, cnt)
+    err_l1 = max(cols(h1, h1_p, 'layer1 H1', 1e-2),
+                 cols(d1, d1_p, 'layer1 D1', 1e-2))
+    h1f = torch.empty_like(h1)
+    cuda_nn.layer1_cuda(x16, pe, counts, h1f, None, cnt)
+    err_l1f = cols(h1f, h1_p, 'layer1 fwd H1', 1e-2)
+    h1.copy_(h1_p)
+    d1.copy_(d1_p)
+    e_h = torch.empty(n, 1, device=DEV)
+    cuda_nn.hidden_cuda(h1, d1, pe, counts, g1, epart, cnt, e_h)
+    check_normwise(f'{label} hidden e', e_h, e_p, 1e-3)
+    err_h = max(max_abs(e_h, e_p), cols(g1, g1_p, 'hidden G1', 1e-2))
+    e_hf = torch.empty(n, 1, device=DEV)
+    cuda_nn.hidden_cuda(h1, None, pe, counts, None, epart, cnt, e_hf)
+    check_normwise(f'{label} hidden fwd e', e_hf, e_p, 1e-3)
+    g1.copy_(g1_p)
+    dx = torch.empty(n, pe.in_actual, device=DEV)
+    cuda_nn.dx_cuda(g1, pe, counts, dx)
+    check_normwise(f'{label} dx', dx, dx_p, 1e-4)
+
+    # The whole function against the per-species oracle, and repeatable.
+    e_k, dx_k = cuda_nn.ensemble_cuda(x, pe, counts, True)
+    e_kf, _ = cuda_nn.ensemble_cuda(x, pe, counts, False)
+    e_o, dx_o = cuda_nn.ensemble_oracle(ens, x, counts, True)
+    check_normwise(f'{label} fwdgrad e', e_k, e_o, 1e-3)
+    check_normwise(f'{label} fwdgrad dx', dx_k, dx_o, 1e-2)
+    check_normwise(f'{label} fwd e', e_kf, e_o, 1e-3)
+    deterministic(f'{label} fused nn fwdgrad', (e_k, dx_k),
+                  cuda_nn.ensemble_cuda(x, pe, counts, True))
+    deterministic(f'{label} fused nn fwd', (e_kf,),
+                  cuda_nn.ensemble_cuda(x, pe, counts, False)[:1])
+
+    # Work, from the packed widths (the ANI-2x widths need no padding).
+    m = pe.num_models
+    l1_macs = sum((r1 - r0) * pe.in_pad * ksp for _, r0, r1, ksp in rows)
+    hid_macs = sum((r1 - r0) * m * (sum(a * b for a, b in zip(
+        pe.nets[s].dims[1:-2], pe.nets[s].dims[2:-1]))
+        + pe.nets[s].dims[-2]) for s, r0, r1, _ in rows)
+    dx_macs = sum((r1 - r0) * ksp * pe.in_actual for _, r0, r1, ksp in rows)
+    k_rows = sum((r1 - r0) * ksp for _, r0, r1, ksp in rows)
+    w1_bytes = sum(ksp * (pe.in_pad * 2 + 4) for _, _, _, ksp in rows)
+    hid_w_bytes = sum(pe.nets[s].wbuf.numel() * 2 + pe.nets[s].fbuf.numel() * 4
+                      for s, _, _, _ in rows)
+    io = x16.numel() * 2
+    s1 = [(x16[r0:r1], pe.nets[s].w1) for s, r0, r1, _ in rows]
+    s3 = [(g1[r0:r1, :ksp], pe.nets[s].w1) for s, r0, r1, ksp in rows]
+    ents = {
+        'fused_nn_fwd_layer1': entry(
+            'fused_nn_fwd_layer1', 'fused_nn', err_l1f,
+            lambda: cuda_nn.layer1_cuda(x16, pe, counts, h1f, None, cnt),
+            lambda: cuda_nn.layer1_plain(x16, pe, counts, False),
+            io + w1_bytes + 2 * k_rows, 2 * l1_macs, BF16_OPS_PER_S, calls),
+        'fused_nn_fwd_hidden': entry(
+            'fused_nn_fwd_hidden', 'fused_nn', max_abs(e_hf, e_p),
+            lambda: cuda_nn.hidden_cuda(h1, None, pe, counts, None, epart,
+                                        cnt, e_hf),
+            lambda: cuda_nn.hidden_plain(h1_p, None, pe, counts, False),
+            2 * k_rows + hid_w_bytes + 4 * n, 2 * hid_macs, BF16_OPS_PER_S,
+            calls),
+        'fused_nn_fwdgrad_layer1': entry(
+            'fused_nn_fwdgrad_layer1', 'fused_nn', err_l1,
+            lambda: cuda_nn.layer1_cuda(x16, pe, counts, h1, d1, cnt),
+            lambda: cuda_nn.layer1_plain(x16, pe, counts, True),
+            io + w1_bytes + 6 * k_rows, 2 * l1_macs, BF16_OPS_PER_S, calls),
+        'fused_nn_fwdgrad_hidden': entry(
+            'fused_nn_fwdgrad_hidden', 'fused_nn', err_h,
+            lambda: cuda_nn.hidden_cuda(h1, d1, pe, counts, g1, epart, cnt,
+                                        e_h),
+            lambda: cuda_nn.hidden_plain(h1_p, d1_p, pe, counts, True),
+            8 * k_rows + hid_w_bytes + 4 * n, 4 * hid_macs, BF16_OPS_PER_S,
+            calls),
+        'fused_nn_fwdgrad_dx': entry(
+            'fused_nn_fwdgrad_dx', 'fused_nn', max_abs(dx, dx_p),
+            lambda: cuda_nn.dx_cuda(g1, pe, counts, dx),
+            lambda: cuda_nn.dx_plain(g1_p, pe, counts),
+            2 * k_rows + w1_bytes + 4 * n * pe.in_actual, 2 * dx_macs,
+            BF16_OPS_PER_S, calls),
+    }
+    # Yardstick: cuBLAS bf16 products at the stage-1 and stage-3 shapes
+    # (timed here only; the port never calls them).
+    lib1 = graph_ms(lambda: [torch.matmul(a, w.t()) for a, w in s1], calls)
+    lib3 = graph_ms(lambda: [torch.matmul(a, w) for a, w in s3], calls)
+    for name in ('fused_nn_fwd_layer1', 'fused_nn_fwdgrad_layer1'):
+        ents[name]['library_ms'] = lib1
+    ents['fused_nn_fwdgrad_dx']['library_ms'] = lib3
+    # The whole function: its own bound (every layer's products, x read
+    # and dx written once) against the sum of its stages.
+    macs = sum((r1 - r0) * m * sum(w.shape[1] * w.shape[2]
+                                   for w in ens.networks[s].weights)
+               for s, r0, r1, _ in rows)
+    w_bytes = sum(2 * m * sum(w.shape[1] * w.shape[2]
+                              for w in ens.networks[s].weights)
+                  + 4 * sum(b.numel() for b in ens.networks[s].biases)
+                  for s, _, _, _ in rows)
+    for grad in (False, True):
+        fn = lambda: cuda_nn.ensemble_cuda(x, pe, counts, grad)  # noqa: E731
+        t_ops = 2 * macs * (2 if grad else 1) / BF16_OPS_PER_S
+        t_bytes = (x.numel() * 4 * (2 if grad else 1) + w_bytes
+                   + 4 * n) / HBM_BYTES_PER_S
+        stages = FUSED_GRAD if grad else FUSED_FWD
+        print(f"{label} fused nn {'fwdgrad' if grad else 'fwd'} (rows "
+              f"{counts}): {graph_ms(fn, calls):.5f} ms in a CUDA graph, "
+              f"{cuda_ms(fn, calls):.5f} ms eager, stages "
+              + ', '.join(f"{k[9:]} {ents[k]['ms']:.5f}" for k in stages)
+              + f' ms; bound of the function {1e3 * max(t_ops, t_bytes):.5f}'
+              f' ms; staged intermediates {ws.nbytes / 1e6:.1f} MB')
+    print(f'{label} fused nn yardstick (cuBLAS bf16): layer-1 products '
+          f'{lib1:.5f} ms, dx products {lib3:.5f} ms; max|de| '
+          f'{max_abs(e_k, e_o):.3g} (max|e| {float(e_o.abs().max()):.3g}) '
+          f'max|ddx| {max_abs(dx_k, dx_o):.3g} (max|dx| '
+          f'{float(dx_o.abs().max()):.3g})')
+    return ents
 
 
 def left_pack_entry(keys, widths, caps):
@@ -551,12 +683,12 @@ def pallas_phase(basis, params):
                     deltas.shape[2])
     feat = torch.cat(compute_aev_blocked(payload, basis, layout, 'plain'),
                      1).detach()
-    nn_entries(params, feat, model.grouping.counts)
+    nn_entries(params.ensemble, feat, model.grouping.counts, 'pallas')
     launches, p, sel = drive('pallas', model, params, pos, box, cell_list)
     steps = BLOCKS * REFRESH
     require_launches('pallas', launches, {
-        'angular_aev_fwd': steps, 'angular_aev_bwd': steps,
-        'fused_nn_fwdgrad': 2 * steps, 'fused_nn_fwd': 1})
+        'angular_aev_fwd': steps, 'angular_aev_bwd': steps})
+    require_exact('pallas', launches, fused_launches(steps, 1))
     step_vs_plain('pallas', model, params, p, box, cell_list, sel)
 
 
@@ -624,8 +756,7 @@ def window_kernel_phase(basis, params):
     kernels['angular_aev_fwd'] = merge([f for f, _ in ang])
     kernels['angular_aev_bwd'] = merge([b for _, b in ang])
     (args, _), = feats
-    kernels['fused_nn_fwd'], kernels['fused_nn_fwdgrad'] = nn_entries(
-        params, args[1].detach(), args[2])
+    kernels.update(nn_entries(args[0], args[1].detach(), args[2], 'window'))
     for k in kernels.values():
         print(f"{k['name']}: kernel {k['ms']:.4f} ms (CUDA graph; eager "
               f"launches {k['event_ms']:.4f} ms), plain "
@@ -648,8 +779,14 @@ def window_large_phase(basis, params):
     model.check_overflow(pos, box, cell_list, sel)
     torch.cuda.synchronize()
     select_s = time.perf_counter() - t0
-    model.energy_and_forces_from_selection(params, pos, box, cell_list, sel)
+    feats = []
+    with recording(ani_mod, 'ensemble_energy_grouped_rows_fused', feats):
+        model.energy_and_forces_from_selection(params, pos, box, cell_list,
+                                               sel)
     torch.cuda.synchronize()
+    (args, _), = feats
+    nn_entries(args[0], args[1].detach(), args[2], 'window 26k', calls=10)
+    del feats, args
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     p = pos
@@ -853,7 +990,7 @@ def config5_phase(basis):
         'pme_window_fwd': steps, 'pme_window_bwd': steps,
         'left_pack': C5_BLOCKS, 'window_radial_fwd': steps,
         'window_radial_bwd': steps, 'angular_aev_fwd': ntiers * steps,
-        'angular_aev_bwd': ntiers * steps, 'fused_nn_fwdgrad': 2 * steps})
+        'angular_aev_bwd': ntiers * steps, **fused_launches(steps, 0)})
     p = final.positions
     sel = c5.select(p)
     e_k, f_k = c5.forces(sel, p)
@@ -1315,7 +1452,8 @@ def opt_in_phase(basis, params):
     require_launches('pair', launches, {
         'pair_radial_fwd': steps, 'pair_radial_bwd': steps,
         'left_pack': BLOCKS, 'angular_aev_fwd': steps,
-        'angular_aev_bwd': steps, 'fused_nn_fwdgrad': 2 * steps})
+        'angular_aev_bwd': steps})
+    require_exact('pair', launches, fused_launches(steps, 1))
     if launches['window_radial_fwd'] or launches['window_radial_bwd']:
         raise AssertionError('the pair path launched the window radial kernel')
     step_vs_plain('pair 2.6k', pair, params, p, box, cell_list, sel)
@@ -1485,8 +1623,8 @@ def main():
     require_launches('window', launches, {
         'left_pack': BLOCKS, 'window_radial_fwd': steps,
         'window_radial_bwd': steps, 'angular_aev_fwd': ntiers * steps,
-        'angular_aev_bwd': ntiers * steps, 'fused_nn_fwdgrad': 2 * steps,
-        'fused_nn_fwd': 1})
+        'angular_aev_bwd': ntiers * steps})
+    require_exact('window', launches, fused_launches(steps, 1))
     step_vs_plain('window', model, params, p, box, cell_list, sel)
     for k in kernels.values():
         k['launches'] = launches[k['name']]

@@ -31,7 +31,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0, 'cfconv_bwd': 0,
             'cluster_radial_fwd': 0, 'cluster_radial_bwd': 0,
-            'fused_nn_fwd': 0, 'fused_nn_fwdgrad': 0,
+            'fused_nn_fwd_layer1': 0, 'fused_nn_fwd_hidden': 0,
+            'fused_nn_fwdgrad_layer1': 0, 'fused_nn_fwdgrad_hidden': 0,
+            'fused_nn_fwdgrad_dx': 0,
             'left_pack': 0, 'left_pack_lanes': 0,
             'pair_radial_fwd': 0, 'pair_radial_bwd': 0,
             'pme_window_fwd': 0, 'pme_window_bwd': 0,
@@ -62,10 +64,15 @@ _SIGNATURES = {
     # from ncl on
     'cluster_radial_bwd': (_P,) * 7 + (_I,) * 4 + (_P,) * 2 + (_I,) * 2
                           + (_P,) * 2 + (_D, _D, _P),
-    # x, wbuf, fbuf, e_out, dx_out, n, in_actual, n_layers, dims, models,
-    # stream
-    'fused_nn_fwd': (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
-    'fused_nn_fwdgrad': (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
+    # x16, w1cat, fbuf, h1, d1 (fwdgrad), cnt, ncnt, meta, counts (host
+    # arrays), stream
+    'fused_nn_fwd_layer1': (_P,) * 6 + (_I,) + (_P,) * 3,
+    'fused_nn_fwdgrad_layer1': (_P,) * 6 + (_I,) + (_P,) * 3,
+    # h1, d1, wbuf, fbuf, g1, epart, cnt, e_out, meta, counts, stream
+    'fused_nn_fwd_hidden': (_P,) * 11,
+    'fused_nn_fwdgrad_hidden': (_P,) * 11,
+    # g1, w1cat_t, dx, meta, counts, stream
+    'fused_nn_fwdgrad_dx': (_P,) * 6,
     # keys, packed, counts, n_rows, width, k_total, npres, widths, caps
     # (host arrays), stream
     'left_pack': (_P,) * 3 + (_I,) * 4 + (_P,) * 3,

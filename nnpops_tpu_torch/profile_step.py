@@ -26,7 +26,13 @@ builds it, margin 1.2), and measures, in one process:
    position gradient of the ANI part, of the PME direct window and of the
    reciprocal and self terms): CUDA-event time (taken with phases 1-2,
    before any profiler session), and under ``torch.profiler`` device
-   kernel time and kernels per call, which split the step's.
+   kernel time and kernels per call, which split the step's;
+6. the fused ensemble's call alone (``ensemble_energy_grouped_rows_fused``
+   and its input gradient on the step's own AEV rows, as the step makes
+   it): the host time for a call to return, not synchronised between
+   calls (what a host-paced step pays for it), 3 runs of 20 calls, and its
+   CUDA-event time (taken with phases 1-2). Any tree of the port with that
+   entry point can be measured this way by running this file in it.
 
 ``--impl cfconv`` measures the SchNet/CFConv path instead: one iteration
 of the 26,010-atom 6-layer CFConv stack of ``chip_smoke.py`` phase 8
@@ -59,6 +65,7 @@ import time
 import torch
 
 from . import ANIBasis, _kernels
+from .models import ani as ani_module
 from .models.ani import ANIModel, init_ani_params
 from .models.combined import C5_SELF_ENERGIES, config5
 from .models.schnet import periodic_stack, periodic_stack_grads
@@ -71,6 +78,7 @@ STEPS = 8
 REPEATS = 3
 SEED = 0
 TOP = 12
+NN_CALLS = 20
 
 
 def _event_ms(fn, n):
@@ -94,6 +102,18 @@ def _host_ms(fn, n):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _submit_ms(fn, n):
+    """Mean host-clock time for ``fn`` to return over ``n`` calls, not
+    synchronised between them (the device may still run), ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
 
 
 def _kernel_events(prof):
@@ -307,6 +327,23 @@ def main(argv=None):
             for _ in range(3):
                 fn()
             res['parts'][name] = {'ms_events': _event_ms(fn, STEPS)}
+
+    # 6: the fused ensemble's call alone, on the step's own rows.
+    calls = []
+    with recording(ani_module, 'ensemble_energy_grouped_rows_fused', calls):
+        step()
+    fused = ani_module.ensemble_energy_grouped_rows_fused
+    ens, feat, nn_counts = calls[0][0]
+
+    def nn_call():
+        a = feat.detach().requires_grad_(True)
+        return torch.autograd.grad(fused(ens, a, nn_counts), a)
+
+    for _ in range(3):
+        nn_call()
+    res['nn_call_submit_ms'] = [_submit_ms(nn_call, NN_CALLS)
+                                for _ in range(REPEATS)]
+    res['nn_call_ms_events'] = _event_ms(nn_call, NN_CALLS)
 
     # 3: the profiled steps.
     from torch.profiler import ProfilerActivity, profile

@@ -121,8 +121,9 @@ def test_fused_nn_kernel_matches_plain(dev, dims, num_models, in_dim):
     net = random_net(dims, num_models, in_dim, dev, seed=9)
     gen = torch.Generator().manual_seed(10)
     x = (0.3 * torch.randn(203, in_dim, generator=gen)).to(dev)
-    e_k = cuda_nn.fused_species_net_fwd(x, net)
-    e_kg, dx_k = cuda_nn.fused_species_net_fwdgrad(x, net)
+    pe = cuda_nn.pack_ensemble(batched_nn.EnsembleParams((net,)))
+    e_k = cuda_nn.ensemble_cuda(x, pe, (len(x),), False)[0]
+    e_kg, dx_k = cuda_nn.ensemble_cuda(x, pe, (len(x),), True)
     e_p, dx_p = cuda_nn.fused_species_net_plain(x, net, with_grad=True)
     # Normwise gates: a bf16 operand can round the other way when the f32
     # accumulation order differs, which moves a near-zero energy by more
@@ -130,6 +131,145 @@ def test_fused_nn_kernel_matches_plain(dev, dims, num_models, in_dim):
     for e in (e_k, e_kg):
         assert float((e - e_p).abs().max()) <= 1e-3 * float(e_p.abs().max())
     assert float((dx_k - dx_p).abs().max()) <= 1e-2 * float(dx_p.abs().max())
+
+
+FUSED_GRAD_STAGES = ('fused_nn_fwdgrad_layer1', 'fused_nn_fwdgrad_hidden',
+                     'fused_nn_fwdgrad_dx')
+FUSED_FWD_STAGES = ('fused_nn_fwd_layer1', 'fused_nn_fwd_hidden')
+
+
+def random_ensemble(dims_list, num_models, in_dim, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ens = batched_nn.init_ensemble(gen, in_dim, dims_list, num_models,
+                                   device='cpu')
+    return batched_nn.EnsembleParams(tuple(
+        batched_nn.SpeciesNet(
+            tuple(w.to(dev) for w in net.weights),
+            tuple((0.1 * torch.randn(b.shape, generator=gen)).to(dev)
+                  for b in net.biases))
+        for net in ens.networks))
+
+
+def normwise(got, want, rtol):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rtol * float(want.float().abs().max()), (err, rtol)
+
+
+# Three narrow species of different widths (one with 1 row, one with none),
+# the same with odd model counts (each species' vectors then end on an odd
+# float before the pack pads them), and the ANI-2x H and O nets at full
+# width with ragged row counts.
+STAGE_CASES = {
+    'narrow': ([(32, 24, 16), (48, 16, 32), (16, 32, 16)], 2, 64, (203, 1, 0)),
+    'narrow-3-models': ([(32, 24, 16), (48, 16, 32), (16, 32, 16)], 3, 64,
+                        (70, 33, 5)),
+    'narrow-1-model': ([(32, 24, 16), (48, 16, 32)], 1, 64, (130, 7)),
+    'ani2x-HO': ([ANI2X_LAYER_DIMS[0], ANI2X_LAYER_DIMS[3]], 8, 1008,
+                 (203, 1)),
+}
+
+
+@pytest.mark.parametrize('case', sorted(STAGE_CASES))
+def test_fused_nn_stage_kernels_match_plain(dev, case):
+    """Each stage kernel against its plain version on the same inputs."""
+    dims_list, models, in_dim, counts = STAGE_CASES[case]
+    params = random_ensemble(dims_list, models, in_dim, dev, seed=11)
+    pe = cuda_nn.pack_ensemble(params)
+    n = sum(counts)
+    x = (0.3 * torch.randn(n, in_dim, generator=torch.Generator()
+                           .manual_seed(12))).to(dev)
+    x16 = cuda_nn.to_bf16_input(x, pe)
+    ws = cuda_nn.workspace(pe, counts, True)
+    buf = torch.empty(ws.nbytes, dtype=torch.uint8, device=dev)
+    h1, d1, g1, epart, cnt = cuda_nn.workspace_views(buf, ws, pe, n)
+    h1_p, d1_p = cuda_nn.layer1_plain(x16, pe, counts, True)
+    e_p, g1_p = cuda_nn.hidden_plain(h1_p, d1_p, pe, counts, True)
+    dx_p = cuda_nn.dx_plain(g1_p, pe, counts)
+    before = dict(_kernels.LAUNCHES)
+    cuda_nn.layer1_cuda(x16, pe, counts, h1, d1, cnt)
+    h1_k = h1.clone()
+    for s, r0, r1, ksp in cuda_nn.species_rows(pe, counts):
+        normwise(h1[r0:r1, :ksp], h1_p[r0:r1, :ksp], 1e-2)
+        normwise(d1[r0:r1, :ksp], d1_p[r0:r1, :ksp], 1e-2)
+    # The hidden and dx kernels on the plain version's own inputs.
+    h1.copy_(h1_p)
+    d1.copy_(d1_p)
+    e = torch.empty(n, 1, device=dev)
+    cuda_nn.hidden_cuda(h1, d1, pe, counts, g1, epart, cnt, e)
+    normwise(e, e_p, 1e-3)
+    for s, r0, r1, ksp in cuda_nn.species_rows(pe, counts):
+        normwise(g1[r0:r1, :ksp], g1_p[r0:r1, :ksp], 1e-2)
+    g1.copy_(g1_p)
+    dx = torch.empty(n, in_dim, device=dev)
+    cuda_nn.dx_cuda(g1, pe, counts, dx)
+    normwise(dx, dx_p, 1e-4)
+    for k in FUSED_GRAD_STAGES:
+        assert _kernels.LAUNCHES[k] == before[k] + 1
+    # The forward-only stages give the energies of the gradient stages.
+    cnt.zero_()
+    h1f = torch.empty_like(h1)
+    cuda_nn.layer1_cuda(x16, pe, counts, h1f, None, cnt)
+    for s, r0, r1, ksp in cuda_nn.species_rows(pe, counts):
+        assert torch.equal(h1f[r0:r1, :ksp], h1_k[r0:r1, :ksp])
+    e_f = torch.empty(n, 1, device=dev)
+    cuda_nn.hidden_cuda(h1, None, pe, counts, None, epart, cnt, e_f)
+    normwise(e_f, e, 1e-6)
+    for k in FUSED_FWD_STAGES:
+        assert _kernels.LAUNCHES[k] == before[k] + 1
+
+
+@pytest.mark.parametrize('case', sorted(STAGE_CASES))
+def test_fused_nn_one_launch_set_matches_oracle(dev, case):
+    """The grouped total and its gradient through one launch set for every
+    species, against the per-species oracle; two launches are bitwise
+    equal."""
+    dims_list, models, in_dim, counts = STAGE_CASES[case]
+    params = random_ensemble(dims_list, models, in_dim, dev, seed=13)
+    x = (0.3 * torch.randn(sum(counts), in_dim, generator=torch.Generator()
+                           .manual_seed(14))).to(dev)
+    _kernels.reset_launch_counts()
+    xk = x.clone().requires_grad_(True)
+    total = cuda_nn.ensemble_energy_grouped_rows_fused(params, xk, counts)
+    (g_k,) = torch.autograd.grad(total, xk)
+    assert all(_kernels.LAUNCHES[k] == 1 for k in FUSED_GRAD_STAGES)
+    assert not any(_kernels.LAUNCHES[k] for k in FUSED_FWD_STAGES)
+    with torch.no_grad():
+        total_f = cuda_nn.ensemble_energy_grouped_rows_fused(params, x, counts)
+    assert all(_kernels.LAUNCHES[k] == 1 for k in FUSED_FWD_STAGES)
+    xp = x.clone().requires_grad_(True)
+    want = cuda_nn.ensemble_energy_grouped_rows_fused_plain(params, xp, counts)
+    (g_p,) = torch.autograd.grad(want, xp)
+    # Per-atom energies are gated normwise; the total against the sum of
+    # their magnitudes.
+    pe = cuda_nn.pack_ensemble(params)
+    e_k, dx_k = cuda_nn.ensemble_cuda(x, pe, counts, True)
+    e_o, dx_o = cuda_nn.ensemble_oracle(params, x, counts, True)
+    normwise(e_k, e_o, 1e-3)
+    normwise(dx_k, dx_o, 1e-2)
+    assert (abs(float(total.detach()) - float(want.detach()))
+            <= 1e-3 * float(e_o.abs().sum()))
+    assert abs(float(total_f) - float(total)) <= 1e-6 * float(e_o.abs().sum())
+    normwise(g_k, g_p, 1e-2)
+    normwise(dx_k, g_p, 1e-2)
+    # Deterministic: no float atomics.
+    e_k2, dx_k2 = cuda_nn.ensemble_cuda(x, pe, counts, True)
+    e_f1, _ = cuda_nn.ensemble_cuda(x, pe, counts, False)
+    e_f2, _ = cuda_nn.ensemble_cuda(x, pe, counts, False)
+    assert torch.equal(e_k, e_k2) and torch.equal(dx_k, dx_k2)
+    assert torch.equal(e_f1, e_f2)
+    normwise(e_f1, e_k, 1e-6)
+
+
+def test_fused_nn_rejects_bad_input(dev):
+    params = random_ensemble([(32, 24, 16)], 2, 64, dev, seed=15)
+    pe = cuda_nn.pack_ensemble(params)
+    x = torch.zeros(5, 64, device=dev)
+    with pytest.raises(ValueError):
+        cuda_nn.ensemble_cuda(x.double(), pe, (5,), True)
+    with pytest.raises(ValueError):
+        cuda_nn.ensemble_cuda(x, pe, (4,), True)
+    with pytest.raises(ValueError):
+        cuda_nn.ensemble_cuda(x, pe, (5, 0), True)
 
 
 def test_force_step_kernels_match_plain(dev):
@@ -150,9 +290,10 @@ def test_force_step_kernels_match_plain(dev):
     e_k, f_k = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
     assert _kernels.LAUNCHES['angular_aev_fwd'] == 1
     assert _kernels.LAUNCHES['angular_aev_bwd'] == 1
-    assert _kernels.LAUNCHES['fused_nn_fwdgrad'] == 2          # H and O
+    # One launch set for H and O: each stage once.
+    assert all(_kernels.LAUNCHES[k] == 1 for k in FUSED_GRAD_STAGES)
     e_p, f_p = plain_energy_and_forces(model, params, pos, box, cl, sel)
-    assert _kernels.LAUNCHES['fused_nn_fwdgrad'] == 2
+    assert all(_kernels.LAUNCHES[k] == 1 for k in FUSED_GRAD_STAGES)
     np.testing.assert_allclose(float(e_k), float(e_p), rtol=1e-3)
     assert float((f_k - f_p).abs().max()) <= 5e-3 * float(f_p.abs().max())
 
@@ -254,12 +395,66 @@ def test_window_step_kernels_match_plain(dev, bucketed):
     assert _kernels.LAUNCHES['window_radial_bwd'] == radial_calls
     assert _kernels.LAUNCHES['angular_aev_fwd'] == tiers
     assert _kernels.LAUNCHES['angular_aev_bwd'] == tiers
-    assert _kernels.LAUNCHES['fused_nn_fwdgrad'] == 2           # H and O
+    # One launch set for H and O: each stage once.
+    assert all(_kernels.LAUNCHES[k] == 1 for k in FUSED_GRAD_STAGES)
     before = dict(_kernels.LAUNCHES)
     e_p, f_p = plain_energy_and_forces(model, params, pos, box, cl, sel)
     assert dict(_kernels.LAUNCHES) == before
     np.testing.assert_allclose(float(e_k), float(e_p), rtol=1e-3)
     assert float((f_k - f_p).abs().max()) <= 5e-3 * float(f_p.abs().max())
+
+
+def spread(a, b):
+    """max |a - b| over max |b|: the run-to-run spread of two launches."""
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+# Measured spreads of two identical launches on water(150) stay far below
+# these bounds (ROADMAP section C): B.2's and B.3's backwards sum with float
+# atomics, so their last bits depend on the order of the adds.
+ATOMIC_SPREAD_BOUND = 1e-5
+
+
+def test_atomic_backwards_spread_is_bounded(dev):
+    """B.2's and B.3's backward launched twice on the same inputs (the
+    window path's shapes on water(150)), and the forces of two identical
+    window steps: the spread between the two is bounded, and B.4's part of
+    the step is bitwise repeatable."""
+    model, cl, pos, box, sel = window_setup(dev)
+    (cx, cy, cz), centers, caps = window_radial_inputs(model, cl, pos, sel)
+    basis = model.basis
+    args = (basis.radial_cutoff, basis.radial_eta, basis.radial_rs, caps,
+            basis.torchani)
+
+    def radial_grads():
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in (cx, cy, cz, centers)]
+        out = cuda_window.window_radial(*ins, *args)
+        return torch.autograd.grad(out.square().sum(), ins)
+
+    angulars = []
+    params = init_ani_params(torch.Generator(device=dev).manual_seed(0),
+                             basis, device=dev)
+    with recording(cuda_aev, 'angular_aev', angulars):
+        model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+
+    def angular_grads():
+        out = []
+        for a, _ in angulars:
+            d = a[0].detach().clone().requires_grad_(True)
+            res = cuda_aev.angular_aev(d, a[1], *a[2:5])
+            out += torch.autograd.grad(res.square().sum(), d)
+        return out
+
+    spreads = {}
+    for name, fn in (('B.2 bwd', radial_grads), ('B.3 bwd', angular_grads)):
+        first, again = fn(), fn()
+        spreads[name] = max(spread(a, b) for a, b in zip(again, first))
+    _, f1 = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    _, f2 = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    spreads['window step forces'] = spread(f2, f1)
+    print(f'two-launch spreads (max|diff| / max|value|): {spreads}')
+    assert all(v <= ATOMIC_SPREAD_BOUND for v in spreads.values()), spreads
 
 
 def pme_setup(dev, num_excl, molecules=150):

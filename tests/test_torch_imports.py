@@ -61,7 +61,11 @@ def test_import_builds_nothing():
     assert set(_kernels.LAUNCHES) == {'angular_aev_fwd', 'angular_aev_bwd',
                                       'cfconv_bwd', 'cluster_radial_fwd',
                                       'cluster_radial_bwd',
-                                      'fused_nn_fwd', 'fused_nn_fwdgrad',
+                                      'fused_nn_fwd_layer1',
+                                      'fused_nn_fwd_hidden',
+                                      'fused_nn_fwdgrad_layer1',
+                                      'fused_nn_fwdgrad_hidden',
+                                      'fused_nn_fwdgrad_dx',
                                       'left_pack', 'left_pack_lanes',
                                       'pair_radial_fwd', 'pair_radial_bwd',
                                       'pme_window_fwd', 'pme_window_bwd',
