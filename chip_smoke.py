@@ -57,7 +57,9 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    0.1, width 128, 50 Gaussians, 10 A cutoff, 6 layers, a 6x6x6 cell grid,
    640 neighbor lanes, 2048-row chunks): (a) the CFConv backward kernel
    against its plain version on the inputs of one layer's backward, timed,
-   plus one small call with the tanh activation; (b) 1 warm-up and 2 timed
+   its bound that of its three bf16 tensor-core passes (the old f32 bound
+   printed beside), two launches bitwise equal, plus one small call with
+   the tanh activation; (b) 1 warm-up and 2 timed
    iterations (select with mirror, distance payload, 6 layers, gradients
    of the sum with respect to positions, inputs and weights; ms/iteration,
    no overflow, 6 kernel launches an iteration), then one iteration
@@ -1020,13 +1022,14 @@ def config5_phase(basis):
 # ---------------------------------------------------------------------------
 
 def cfconv_pair_ops(width, gaussians):
-    """Operations per valid pair of the CFConv backward kernel, counted from
-    ``csrc/cfconv_bwd.cu`` (an FMA counts two): the four filter products
-    and the two weight-gradient outer products, 3 W^2 + 3 G W FMAs, plus
-    the Gaussians (11 G), the activation, its derivative and the d_y1 /
-    d_x / d_fc terms (18 W) and the cutoff (6)."""
-    return 2 * (3 * width * width + 3 * gaussians * width) \
-        + 11 * gaussians + 18 * width + 6
+    """Operations per valid pair of the CFConv backward, counted from
+    ``csrc/cfconv_bwd.cu`` (an FMA counts two): ``(products, elementwise)``,
+    the four filter products and the two weight-gradient products, 3 W^2 +
+    3 G W FMAs (the kernel runs each three times, in bf16 passes), and the
+    Gaussians (11 G), the activation, its derivative and the d_y1 / d_x /
+    d_fc terms (18 W) and the cutoff (6)."""
+    return (2 * (3 * width * width + 3 * gaussians * width),
+            11 * gaussians + 18 * width + 6)
 
 
 def cfconv_bwd_check(label, args, cfg, chunk):
@@ -1107,20 +1110,34 @@ def cfconv_phase():
     # output written once (d_dist, d_x, the four weight gradients).
     nbytes = n * k * (4 + 1 + 4) + 2 * 4 * n * wd + 4 * (size + ng) \
         + 4 * n * k + 4 * n * wd + 4 * size
-    ops = pairs * cfconv_pair_ops(wd, ng)
+    prod, elem = (pairs * o for o in cfconv_pair_ops(wd, ng))
+    # The bound: the three bf16 passes of the products on the tensor cores,
+    # or the elementwise work at the f32 rate if that takes longer (it
+    # does not at these widths), or the bytes.
+    tc_bound = 3 * prod / BF16_OPS_PER_S >= elem / F32_OPS_PER_S
+    ops, rate = (3 * prod, BF16_OPS_PER_S) if tc_bound else (elem,
+                                                             F32_OPS_PER_S)
     # Two calls a measurement: one takes tens of milliseconds.
-    e = entry('cfconv_bwd', 'cfconv_bwd', err,
-              lambda: cuda_cfconv.cfconv_bwd_cuda(params, dist, mask, idx, x,
-                                                  g, cfg),
+    kernel = lambda: cuda_cfconv.cfconv_bwd_cuda(  # noqa: E731
+        params, dist, mask, idx, x, g, cfg)
+    e = entry('cfconv_bwd', 'cfconv_bwd', err, kernel,
               lambda: cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x,
                                                    g, cfg, w.chunk_size),
-              nbytes, ops, F32_OPS_PER_S, calls=2)
-    del args, params, dist, mask, idx, x, g
+              nbytes, ops, rate, calls=2)
+    first, again = kernel(), kernel()
+    deterministic('cfconv_bwd', [*first[0], *first[1:]],
+                  [*again[0], *again[1:]])
+    del args, params, dist, mask, idx, x, g, first, again
+    f32_bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                          (prod + elem) / F32_OPS_PER_S)
     print(f"cfconv_bwd: rows {n} lanes {k}, valid pairs {pairs}: kernel "
           f"{e['ms']:.4f} ms (CUDA graph; eager {e['event_ms']:.4f} ms), "
           f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-          f"({e['bound_by']}: {nbytes} bytes, {ops} operations), max|err| "
-          f"{err:.3g}")
+          f"({'tensor cores: 3 bf16 passes of' if tc_bound else 'f32'} "
+          f"{ops} operations at {rate:.3g}/s; {elem} elementwise "
+          f"operations, {nbytes} bytes), {100 * e['bound_ms'] / e['ms']:.1f} "
+          f"% of it; the f32 bound of all {prod + elem} operations "
+          f"{f32_bound:.4f} ms; max|err| {err:.3g}")
 
     # (b) The stack: 2 timed iterations, selection included.
     torch.cuda.synchronize()

@@ -27,7 +27,11 @@ are TPU matters: the kernel takes any K and row count.
 
 ``compute_dtype=torch.bfloat16`` rounds the filter products' operands to
 bf16 with f32 accumulation (the JAX option) in the forward and the plain
-backward; the kernel computes in f32, as the Pallas kernel does.
+backward. The kernel runs its six products on the tensor cores in three
+bf16 passes (``hi.hi + hi.lo + lo.hi`` of ``hi = bf16(a)``, ``lo =
+bf16(a - hi)``, f32 accumulation), about 2^-16 relative per product where
+the Pallas kernel computes in f32; ``dtype=SPLIT3`` makes the plain
+version emulate that arithmetic (for tests).
 """
 from __future__ import annotations
 
@@ -49,10 +53,23 @@ MAX_GAUSSIANS = 64            # csrc/cfconv_bwd.cu limits
 WIDTHS = (32, 64, 128)
 
 
+# ``dtype`` of the plain versions that emulates the kernel's products.
+SPLIT3 = 'bf16x3'
+
+
+def _split(a: Tensor):
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
 def _mm(a: Tensor, b: Tensor, dtype) -> Tensor:
-    """``a @ b`` with f32 accumulation; ``dtype`` rounds the operands."""
+    """``a @ b`` with f32 accumulation; ``dtype`` rounds the operands, and
+    :data:`SPLIT3` takes the kernel's three bf16 passes."""
     if dtype is None:
         return a @ b
+    if dtype == SPLIT3:
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        return ah @ bh + ah @ bl + al @ bh
     return a.to(dtype).float() @ b.to(dtype).float()
 
 
@@ -187,6 +204,8 @@ def cfconv_bwd_cuda(params, dist: Tensor, mask: Tensor, idx: Tensor,
             raise ValueError(f'expected {dtype} {shape}, got {t.dtype} '
                              f'{tuple(t.shape)}')
     _kernels.require_cuda(*(t for t, _, _ in shapes))
+    # The kernel gathers rows of x and g in 16-byte copies.
+    x, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, g))
     dev = dist.device
     centers = device_constant(tuple(float(c) for c in
                                     config.gaussian_positions),
@@ -215,7 +234,8 @@ def cfconv_bwd(params, dist: Tensor, mask: Tensor, idx: Tensor, x: Tensor,
                g: Tensor, config: CFConvConfig,
                chunk_size: Optional[int] = None, dtype=None):
     """The conv's backward: the kernel on a CUDA tensor (one launch over
-    all rows, f32), :func:`cfconv_bwd_plain` on a CPU tensor."""
+    all rows, three bf16 passes a product), :func:`cfconv_bwd_plain` on a
+    CPU tensor."""
     if dist.device.type == 'cpu':
         return cfconv_bwd_plain(params, dist, mask, idx, x, g, config,
                                 chunk_size, dtype)

@@ -313,3 +313,45 @@ def test_cpu_backward_launches_no_kernel():
     assert dict(_kernels.LAUNCHES) == before
     with pytest.raises(ValueError, match='width'):
         cuda_cfconv.check_kernel_config(tcfg)
+
+
+def normwise(a, b):
+    b = np.asarray(b)
+    return float(np.abs(np.asarray(a) - b).max() / np.abs(b).max())
+
+
+def test_bwd_split3_products_hold_the_card_gates():
+    """The kernel's arithmetic (``csrc/cfconv_bwd.cu``): every product in
+    three bf16 passes (``cuda_cfconv.SPLIT3``), emulated by the plain
+    backward, against JAX's f32 XLA backward of ``cfconv_masked`` at the
+    cfconv-26k layer's widths (width 128, 50 Gaussians, 640 lanes, 65 % of
+    them valid): within 2e-5 normwise on every output. One bf16 pass
+    misses the card's 1e-4 gate on d_dist, which is why the kernel takes
+    three."""
+    rng = np.random.RandomState(5)
+    n, k, width = 48, 640, 128
+    tcfg, jcfg = configs(width=width, num_gaussians=50, cutoff=10.0,
+                         gaussian_width=10.0 / 49)
+    mask = rng.rand(n, k) < 0.65
+    dist = np.where(mask, rng.uniform(0.5, 9.9, (n, k)), 0.0).astype(
+        np.float32)
+    idx = np.where(mask, rng.randint(0, n, (n, k)), n).astype(np.int32)
+    x = rng.randn(n, width).astype(np.float32)
+    g = rng.randn(n, width).astype(np.float32)
+    jparams = j_init(jax.random.PRNGKey(6), jcfg)._replace(
+        b1=jnp.asarray(0.1 * rng.randn(width).astype(np.float32)),
+        b2=jnp.asarray(0.1 * rng.randn(width).astype(np.float32)))
+    _, vjp = jax.vjp(jax.jit(lambda prm, d, inp: j_masked(
+        prm, d, jnp.asarray(mask), jnp.asarray(idx), inp, jcfg)),
+        jparams, jnp.asarray(dist), jnp.asarray(x))
+    dprm, ddist, dx = jax.jit(vjp)(jnp.asarray(g))
+    want = [*dprm, ddist, dx]
+    args = (tuple(t(a) for a in jparams), t(dist), t(mask), t(idx), t(x),
+            t(g), tcfg)
+    flat = lambda r: [a.numpy() for a in (*r[0], r[1], r[2])]  # noqa: E731
+    split = flat(cuda_cfconv.cfconv_bwd_plain(*args,
+                                              dtype=cuda_cfconv.SPLIT3))
+    errs = [normwise(a, b) for a, b in zip(split, want)]
+    assert max(errs) <= 2e-5, errs
+    one = flat(cuda_cfconv.cfconv_bwd_plain(*args, dtype=torch.bfloat16))
+    assert normwise(one[4], want[4]) > 1e-4

@@ -559,12 +559,16 @@ def cfconv_config(activation='ssp', width=128, num_gaussians=50):
                         activation=activation)
 
 
-def cfconv_inputs(dev, cfg, k, n=37, seed=0):
+def cfconv_inputs(dev, cfg, k, n=37, seed=0, row_counts=()):
     """Random backward inputs: about 60 % of the lanes valid, row 5 all
-    masked, random biases."""
+    masked, random biases; row r of ``row_counts`` gets exactly
+    ``row_counts[r]`` valid lanes at random places."""
     rng = np.random.RandomState(seed)
     mask = rng.rand(n, k) < 0.6
     mask[5] = False
+    for r, count in enumerate(row_counts):
+        mask[r] = False
+        mask[r, rng.choice(k, count, replace=False)] = True
     dist = np.where(mask, rng.uniform(0.5, 9.9, (n, k)), 0.0)
     idx = np.where(mask, rng.randint(0, n, (n, k)), n)
     w = cfg.width
@@ -617,6 +621,27 @@ def test_cfconv_bwd_kernel_other_widths(dev, width):
     with pytest.raises(ValueError, match='width'):
         cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g,
                                cfconv_config(width=48))
+
+
+def test_cfconv_bwd_kernel_tile_edges(dev):
+    """Rows with 0, 1, 63, 64, 65 and 129 valid lanes (the 64-pair tiles'
+    edges and the empty row), 300 rows (not a multiple of the SM count,
+    so blocks take 2 or 3 rows) and exactly 64 Gaussians (no padded
+    Gaussian column): against the plain version, masked lanes exactly 0,
+    two launches bitwise equal."""
+    cfg = cfconv_config('ssp', num_gaussians=64)
+    params, (dist, mask, idx, x, g) = cfconv_inputs(
+        dev, cfg, 160, n=300, seed=2, row_counts=(0, 1, 63, 64, 65, 129))
+    assert 300 % torch.cuda.get_device_properties(dev).multi_processor_count
+    got = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
+    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg)
+    assert_cfconv_bwd_close(got, want)
+    assert not bool(got[1][~mask].any()) and not bool(got[2][0].any())
+    for r in range(1, 6):              # every row's d_x, row by row
+        assert_normwise(got[2][r], want[2][r], 1e-4)
+    again = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
+    for a, b in zip((*got[0], *got[1:]), (*again[0], *again[1:])):
+        assert torch.equal(a, b)
 
 
 def test_cfconv_stack_kernel_matches_plain(dev):
