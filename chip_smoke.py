@@ -21,9 +21,11 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    captured in a CUDA graph, replayed between CUDA events) beside its plain
    version (CUDA events around 20 eager calls), its bound and, for the
    ensemble's two GEMM stages, cuBLAS bf16 products at their shapes (the
-   yardstick; the port never calls them); the ensemble's fwd and fwdgrad
-   also whole, graph and eager, against the per-species oracle, and two
-   launches bitwise equal;
+   yardstick; the port never calls them); the angular kernel's bound the
+   larger of its bytes, FP32 and SFU operations (the FP32-only bound
+   printed beside) and two launches of each direction bitwise equal; the
+   ensemble's fwd and fwdgrad also whole, graph and eager, against the
+   per-species oracle, and two launches bitwise equal;
 5. the window main path: 2 selection blocks x 8 force steps as in 3, the
    final frame's energy without gradients, the launch counts (every step
    launches the window radial forward and backward, the angular kernel
@@ -120,7 +122,8 @@ from nnpops_tpu_torch.ops import (cuda_aev, cuda_cfconv,  # noqa: E402
                                   cuda_select, cuda_window, cuda_zpair)
 from nnpops_tpu_torch.ops.cfconv import build_cfconv_neighbors  # noqa: E402
 from nnpops_tpu_torch.ops.pme import PME  # noqa: E402
-from nnpops_tpu_torch.ops.aev_blocked import compute_aev_blocked  # noqa: E402
+from nnpops_tpu_torch.ops.aev_blocked import (  # noqa: E402
+    compute_aev_blocked, triple_tables)
 from nnpops_tpu_torch.profile_step import recording  # noqa: E402
 from nnpops_tpu_torch.utils import make_water_box  # noqa: E402
 
@@ -139,12 +142,19 @@ DEV = torch.device('cuda', 0)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# SFU (MUFU) operations/s: 16 a clock per SM, 132 SMs, at the 1.98 GHz that
+# the f32 peak implies.
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # Operations per unit of work, counted from the CUDA sources (an FMA counts
 # two, a sqrt, exp or log one): angular_aev.cu per triple whose two lanes
-# are inside the cutoff; window_radial.cu per (real center, window lane)
-# pair tested and per pair inside the cutoff, R = 16 Gaussians.
-ANG_FWD_OPS = 175
-ANG_BWD_OPS = 420
+# are inside the cutoff, at the (8, 4) grid, FP32 operations and MUFU
+# operations apart (rcp, rsqrt, 4 lg2 + 12 ex2 in either direction; the
+# kernel's SASS holds each of these once); window_radial.cu per (real
+# center, window lane) pair tested and per pair inside the cutoff, R = 16
+# Gaussians.
+ANG_FWD_OPS = 172
+ANG_BWD_OPS = 341
+ANG_SFU = 18
 RAD_TEST_OPS = 10
 RAD_FWD_OPS = 135
 RAD_BWD_OPS = 205
@@ -343,24 +353,45 @@ def angular_entries(deltas, mask, basis, layout, width):
         cuda_aev.place_angular(raw_req, basis, layout).square().sum(), raw_req)
     raw_cot = raw_cot.contiguous()
     # Work: the triples whose two lanes are inside the cutoff.
-    d = deltas[:, :, spec.lane_pos.long()]
+    d = deltas[:, :, torch.as_tensor(cuda_aev._lane_positions(layout, width),
+                                     device=DEV).long()]
     inside = mask & (d.square().sum(0).sqrt() < basis.angular_cutoff)
-    triples = int((inside[:, spec.jj.long()] & inside[:, spec.kk.long()]).sum())
+    tables = triple_tables(layout)
+    jj, kk = (torch.as_tensor(t, device=DEV).long()
+              for t in (tables.jj, tables.kk))
+    triples = int((inside[:, jj] & inside[:, kk]).sum())
     io = deltas.numel() * 4 + mask.numel()
+    fwd_bytes = io + raw_k.numel() * 4
+    bwd_bytes = io + raw_cot.numel() * 4 + deltas.numel() * 4
+    # The bound: the larger of the bytes, the FP32 operations and the SFU
+    # operations; the FP32-only bound printed beside it.
+    bounds = {}
+    for name, ops in (('fwd', ANG_FWD_OPS), ('bwd', ANG_BWD_OPS)):
+        f32 = (triples * ops, F32_OPS_PER_S, 'FP32')
+        sfu = (triples * ANG_SFU, SFU_OPS_PER_S, 'SFU')
+        bounds[name] = max(f32, sfu, key=lambda b: b[0] / b[1]) + (
+            1e3 * f32[0] / f32[1],)
     fwd = entry('angular_aev_fwd', 'angular_aev', max_abs(a_k, a_p),
                 lambda: cuda_aev.angular_fwd_cuda(deltas, mask, spec),
                 lambda: cuda_aev.angular_aev_plain(deltas, mask, basis,
                                                    layout, width),
-                io + raw_k.numel() * 4, triples * ANG_FWD_OPS, F32_OPS_PER_S)
+                fwd_bytes, *bounds['fwd'][:2])
     bwd = entry('angular_aev_bwd', 'angular_aev', max_abs(g_k, g_p),
                 lambda: cuda_aev.angular_bwd_cuda(deltas, mask, raw_cot, spec),
                 lambda: torch.autograd.grad(raw_pg, d_p, raw_cot,
                                             retain_graph=True),
-                io + raw_cot.numel() * 4 + deltas.numel() * 4,
-                triples * ANG_BWD_OPS, F32_OPS_PER_S)
-    print(f'angular rows {deltas.shape[1]} lanes {spec.kat} triples '
-          f'{len(spec.jj)} (inside the cutoff {triples}): fwd {fwd["ms"]:.4f} '
-          f'ms, bwd {bwd["ms"]:.4f} ms')
+                bwd_bytes, *bounds['bwd'][:2])
+    deterministic('angular fwd', [raw_k],
+                  [cuda_aev.angular_fwd_cuda(deltas, mask, spec)])
+    deterministic('angular bwd',
+                  [cuda_aev.angular_bwd_cuda(deltas, mask, raw_cot, spec)],
+                  [cuda_aev.angular_bwd_cuda(deltas, mask, raw_cot, spec)])
+    print(f'angular rows {deltas.shape[1]} lanes {spec.kat} static triples '
+          f'{len(tables.jj)} (inside the cutoff {triples}): ' + ', '.join(
+              f'{name} {e["ms"]:.5f} ms, bound {e["bound_ms"]:.5f} ms '
+              f'({bounds[name][2]}; FP32 only {bounds[name][3]:.5f})'
+              for name, e in (('fwd', fwd), ('bwd', bwd)))
+          + '; two launches bitwise equal')
     return fwd, bwd
 
 

@@ -44,15 +44,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
-    # planes, mask, lane_pos, jj, kk, seg_bounds, out, n_rows, width, kat,
-    # n_seg, n_rs, n_ts, rs, cos_ts, sin_ts (host arrays), ra, eta, zeta,
+    # planes, mask, out, n_rows, width, kat, n_blk, blk_caps, blk_pos (host
+    # arrays), n_rs, n_ts, rs, cos_ts, sin_ts (host arrays), ra, eta, zeta,
     # torchani, stream
-    'angular_aev_fwd': (_P,) * 7 + (_I,) * 6 + (_P,) * 3
-                       + (_D, _D, _D, _I, _P),
-    # planes, mask, lane_pos, col_lane, jj, kk, seg_bounds, g, out, then as
-    # the forward from n_rows on
-    'angular_aev_bwd': (_P,) * 9 + (_I,) * 6 + (_P,) * 3
-                       + (_D, _D, _D, _I, _P),
+    'angular_aev_fwd': (_P,) * 3 + (_I,) * 4 + (_P,) * 2 + (_I,) * 2
+                       + (_P,) * 3 + (_D, _D, _D, _I, _P),
+    # planes, mask, col_lane, g, out, then as the forward from n_rows on
+    'angular_aev_bwd': (_P,) * 5 + (_I,) * 4 + (_P,) * 2 + (_I,) * 2
+                       + (_P,) * 3 + (_D, _D, _D, _I, _P),
     # dist, mask, idx, x, g, w1, b1, w2, b2, centers, d_dist, d_x, part, dw,
     # n, k, width, g, nblocks, tanh, inv_gw, pi_rc, stream
     'cfconv_bwd': (_P,) * 14 + (_I,) * 6 + (_D, _D, _P),

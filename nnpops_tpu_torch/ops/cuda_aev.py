@@ -15,7 +15,11 @@ into the reference ``[N, P*A]`` layout and applies the 2^(1-zeta) scale.
 
 The Pallas kernel's ``dot_impl``/``red_impl``/``bwd_impl`` selectors, its
 bf16x3 selection matmuls and its VMEM block sizing are TPU means, not
-semantics: on the GPU a triple is two index loads.
+semantics. The CUDA kernel takes no triple table: a warp compacts a row's
+lanes inside the cutoff per species block and enumerates the same
+segments' triples over them (a triple with a lane outside the cutoff adds
+an exact 0 in the plain version), so it needs only the species blocks'
+caps and first input columns (``_AngularSpec.blk_caps``, ``blk_pos``).
 
 Dispatch: a CPU tensor runs :func:`angular_aev_plain` (gradients by
 autograd); a CUDA tensor launches the kernel, forward and backward, or
@@ -46,8 +50,9 @@ FC_COEFFS = (0.99999999999953115, -2.4674011001964282, 2.0293560611802657,
              -5.1784521003695567e-05, 1.8597632061664595e-06)
 
 # (n_rs, n_ts) grids the CUDA kernel is instantiated for: ANI-1x/2x (8, 4)
-# and the small test basis (3, 3).
+# and the small test basis (3, 3); species blocks it takes (kMaxBlocks).
 KERNEL_GRIDS = ((8, 4), (3, 3))
+MAX_BLOCKS = 8
 
 
 def fc_poly_t(t):
@@ -174,21 +179,25 @@ class _AngularSpec:
             raise NotImplementedError(
                 f'angular kernel built for (n_rs, n_ts) in {KERNEL_GRIDS}, '
                 f'got {(len(rs_grid), len(ts_grid))}')
-        tables = triple_tables(layout)
+        if not 1 <= len(layout.ang_caps) <= MAX_BLOCKS:
+            raise NotImplementedError(
+                f'angular kernel built for 1..{MAX_BLOCKS} species blocks, '
+                f'got {len(layout.ang_caps)}')
+        if float(basis.angular_zeta[0]) < 1.0:
+            raise NotImplementedError('angular kernel needs zeta >= 1')
         lanes = _lane_positions(layout, rad_width)
         self.width = layout.ang_total if rad_width is None else rad_width
         col_lane = np.full(self.width, -1, np.int32)
         col_lane[lanes] = np.arange(len(lanes), dtype=np.int32)
-
-        def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                                   device=device)
-
-        self.lane_pos, self.col_lane = dev(lanes), dev(col_lane)
-        self.jj, self.kk = dev(tables.jj), dev(tables.kk)
-        self.seg_bounds = dev(np.asarray(tables.seg_bounds))
+        self.col_lane = torch.as_tensor(col_lane, device=device)
         self.kat = layout.ang_total
-        self.n_seg = len(tables.pair_ids)
+        self.n_blk = len(layout.ang_caps)
+        ints = ctypes.c_int * MAX_BLOCKS
+        self.blk_caps = ints(*layout.ang_caps)
+        # Input column of each species block's first angular lane.
+        self.blk_pos = ints(*(layout.ang_offsets if rad_width is None
+                              else layout.rad_offsets))
+        self.n_seg = self.n_blk * (self.n_blk + 1) // 2
         self.n_rs, self.n_ts = len(rs_grid), len(ts_grid)
         self.out_w = self.n_seg * self.n_rs * self.n_ts
         floats = ctypes.c_float * 16
@@ -201,8 +210,10 @@ class _AngularSpec:
         self.torchani = int(bool(basis.torchani))
 
     def scalars(self, n_rows: int, stream: int):
-        head = (n_rows, self.width, self.kat, self.n_seg, self.n_rs,
-                self.n_ts, ctypes.addressof(self.rs),
+        head = (n_rows, self.width, self.kat, self.n_blk,
+                ctypes.addressof(self.blk_caps),
+                ctypes.addressof(self.blk_pos), self.n_rs, self.n_ts,
+                ctypes.addressof(self.rs),
                 ctypes.addressof(self.cts), ctypes.addressof(self.sts))
         return head + (self.ra, self.eta, self.zeta, self.torchani, stream)
 
@@ -234,8 +245,7 @@ def angular_fwd_cuda(deltas: torch.Tensor, ang_mask: torch.Tensor,
     if n:
         _kernels.launch(
             'angular_aev_fwd', deltas.data_ptr(), ang_mask.data_ptr(),
-            spec.lane_pos.data_ptr(), spec.jj.data_ptr(), spec.kk.data_ptr(),
-            spec.seg_bounds.data_ptr(), out.data_ptr(),
+            out.data_ptr(),
             *spec.scalars(n, _kernels.stream_handle(deltas.device)))
     return out
 
@@ -253,9 +263,7 @@ def angular_bwd_cuda(deltas: torch.Tensor, ang_mask: torch.Tensor,
     if n:
         _kernels.launch(
             'angular_aev_bwd', deltas.data_ptr(), ang_mask.data_ptr(),
-            spec.lane_pos.data_ptr(), spec.col_lane.data_ptr(),
-            spec.jj.data_ptr(), spec.kk.data_ptr(),
-            spec.seg_bounds.data_ptr(), g.data_ptr(), out.data_ptr(),
+            spec.col_lane.data_ptr(), g.data_ptr(), out.data_ptr(),
             *spec.scalars(n, _kernels.stream_handle(deltas.device)))
     return out
 

@@ -2,10 +2,11 @@
 
 Builds the smoke configuration of ``chip_smoke.py`` (ANI-2x at full width,
 8 random models, bf16 fused ensemble, skin 0.25 A, margin 1.15) on
-``make_water_box(867)``, 2,601 atoms, in the window configuration (the
-default; ``--impl pallas`` for the species-blocked one; ``--impl
-combined`` for BASELINE config 5, ANI + PME as ``models.combined.config5``
-builds it, margin 1.2), and measures, in one process:
+``make_water_box(867)``, 2,601 atoms (``--molecules 8670`` for the
+26,010-atom box), in the window configuration (the default; ``--impl
+pallas`` for the species-blocked one; ``--impl combined`` for BASELINE
+config 5, ANI + PME as ``models.combined.config5`` builds it, margin 1.2),
+and measures, in one process:
 
 1. the force step on a frozen selection, unprofiled: CUDA events and the
    host clock (synchronised), 3 runs of 8 steps;
@@ -16,7 +17,8 @@ builds it, margin 1.2), and measures, in one process:
    device kernels per step, and the kernels that take the most time. The
    device busy share is that kernel time over the unprofiled CUDA-event
    step time of phase 1 (the profiler slows the host, so its own wall time
-   is not the step's);
+   is not the step's); the angular kernel's (B.3) forward and backward
+   device time per step and their share of the step's;
 4. the neighbor gather and its autograd adjoint at this run's shapes (the
    payload gather of 'pallas', the angular tiers' gathers of 'window'),
    with ``index_select`` (an ``index_add`` adjoint, what the port uses)
@@ -259,6 +261,8 @@ def main(argv=None):
     ap.add_argument('--impl', choices=('window', 'pallas', 'combined',
                                        'cfconv'),
                     default='window')
+    ap.add_argument('--molecules', type=int, default=MOLECULES,
+                    help='waters in the box of the ANI paths')
     ap.add_argument('--out-dir', type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -271,7 +275,7 @@ def main(argv=None):
     if args.impl == 'cfconv':
         return _cfconv(dev, card, args.out_dir)
 
-    water = make_water_box(MOLECULES, seed=SEED)
+    water = make_water_box(args.molecules, seed=SEED)
     basis = ANIBasis.ani2x()
     combined = args.impl == 'combined'
     impl = 'window' if combined else args.impl
@@ -363,6 +367,13 @@ def main(argv=None):
     res['device_kernel_ms_per_step'] = device_ms
     res['device_kernels_per_step'] = len(kernels) / STEPS
     res['busy_share'] = device_ms / step_ms
+    for part, tag in (('fwd', 'angular_fwd_kernel'),
+                      ('bwd', 'angular_bwd_kernel')):
+        tot, cnt = map(sum, zip(*[v for k, v in by_name.items() if tag in k]
+                                or [(0.0, 0)]))
+        res[f'angular_{part}'] = {'ms_per_step': tot / 1e3 / STEPS,
+                                  'share': tot / 1e3 / STEPS / device_ms,
+                                  'per_step': cnt / STEPS}
     res['top_kernels'] = [
         {'name': name[:90], 'ms_per_step': tot / 1e3 / STEPS,
          'share': tot / 1e3 / STEPS / device_ms,

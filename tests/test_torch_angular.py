@@ -89,6 +89,62 @@ def test_plain_matches_pallas_values_and_gradients(torchani, rad_mode):
         assert np.all(ggot.numpy()[:, :, rest] == 0.0)
 
 
+def water_positions(seed=0, molecules=20, spacing=3.5, n_side=3):
+    """TIP3P-geometry waters with random orientations on a jittered cubic
+    lattice: ``molecules`` waters (O, H, H) in a periodic box of edge
+    ``n_side * spacing`` (10.5 A, above twice ANI-2x's radial cutoff)."""
+    rng = np.random.RandomState(seed)
+    angle = np.deg2rad(104.52) / 2
+    template = 0.9572 * np.array([[0.0, 0.0, 0.0],
+                                  [np.sin(angle), np.cos(angle), 0.0],
+                                  [-np.sin(angle), np.cos(angle), 0.0]])
+    sites = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing='ij'),
+                     -1).reshape(-1, 3)[:molecules]
+    box_len = n_side * spacing
+    pos = []
+    for site in sites:
+        q, r = np.linalg.qr(rng.randn(3, 3))
+        center = (site + 0.5 + rng.uniform(-0.15, 0.15, 3)) * spacing
+        pos.append(center + template @ (q * np.sign(np.diag(r))).T)
+    positions = (np.concatenate(pos) % box_len).astype(np.float32)
+    species = np.tile(np.array([3, 0, 0], np.int32), molecules)  # O H H
+    return positions, species, np.eye(3, dtype=np.float32) * box_len
+
+
+def test_plain_matches_pallas_at_ani2x_grid():
+    """The main path's grid: ANI-2x's angular terms (8 x 4, zeta 14.1,
+    torchani mode) on a 60-atom periodic water box, the plain version
+    against the JAX kernel in interpret mode, values and gradients."""
+    basis = ANIBasis.ani2x()
+    positions, species, box = water_positions()
+    layout = plan_blocked_layout(positions, box, species, basis.radial_cutoff,
+                                 basis.angular_cutoff, basis.num_species)
+    cl = CellList.create(box, basis.radial_cutoff, capacity=layout.rad_total)
+    pay = build_blocked_payload(cl, jnp.asarray(positions), jnp.asarray(box),
+                                species, layout, basis.radial_cutoff,
+                                basis.angular_cutoff)
+    deltas, mask = np.asarray(pay.ang_deltas), np.asarray(pay.ang_mask)
+    assert layout.present == (0, 3) and mask.sum() > 0
+
+    def jloss(d):
+        a = angular_aev_pallas(d, jnp.asarray(mask), basis=basis,
+                               layout=layout, block_size=64)
+        return jnp.sum(a * a), a
+
+    (_, want), gwant = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(deltas))
+    d = torch.tensor(deltas, requires_grad=True)
+    got = cuda_aev.angular_aev(d, torch.tensor(mask), basis,
+                               port_layout(layout))
+    (ggot,) = torch.autograd.grad(torch.sum(got * got), d)
+    assert got.shape == want.shape == (60, basis.num_species_pairs * 32)
+    assert float(np.abs(np.asarray(want)).max()) > 0
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=3e-5, atol=3e-6)
+    np.testing.assert_allclose(ggot.numpy(), np.asarray(gwant),
+                               rtol=2e-4, atol=2e-5)
+
+
 def test_fc_poly_matches_cosine_cutoff():
     r = torch.linspace(0.0, 3.5, 1001, dtype=torch.float64)
     t = torch.clamp((r / 3.5) ** 2, max=1.0)
@@ -115,6 +171,26 @@ def test_segments_dispatch_to_plain_on_cpu():
     np.testing.assert_array_equal(
         cuda_aev.angular_aev_segments(d, m, basis, lay).numpy(),
         cuda_aev.angular_aev_plain(d, m, basis, lay).numpy())
+
+
+@pytest.mark.parametrize('rad_mode', [False, True], ids=['angular', 'rad'])
+def test_kernel_spec_block_columns_match_lane_positions(rad_mode):
+    """The CUDA kernel reads species block b's lanes from input columns
+    blk_pos[b] + 0..blk_caps[b]-1 (it takes no lane table): the plain
+    version's lane positions, and col_lane inverts them."""
+    basis = small_basis()
+    _, _, layout, rad_width = make_inputs(basis, rad_mode, seed=3)
+    lay = port_layout(layout)
+    spec = cuda_aev._AngularSpec(basis, lay, rad_width, torch.device('cpu'))
+    lanes = cuda_aev._lane_positions(lay, rad_width)
+    cols = np.concatenate([np.arange(spec.blk_pos[b],
+                                     spec.blk_pos[b] + spec.blk_caps[b])
+                           for b in range(spec.n_blk)])
+    np.testing.assert_array_equal(cols, lanes)
+    col_lane = spec.col_lane.numpy()
+    np.testing.assert_array_equal(col_lane[lanes], np.arange(len(lanes)))
+    assert (np.delete(col_lane, lanes) == -1).all()
+    assert spec.n_seg == len(cuda_aev.triple_tables(lay).pair_ids)
 
 
 def test_requires_factored_grid():

@@ -21,7 +21,8 @@ from nnpops_tpu_torch.models.combined import ANIWithPME
 from nnpops_tpu_torch.models.schnet import CFConvStack
 from nnpops_tpu_torch.models.combined import \
     plain_energy_and_forces as combined_plain
-from nnpops_tpu_torch.neighbors.blocked import (payload_from_blocked,
+from nnpops_tpu_torch.neighbors.blocked import (BlockedLayout,
+                                                payload_from_blocked,
                                                 plan_blocked_layout,
                                                 select_blocked)
 from nnpops_tpu_torch.neighbors.cell_list import CellList
@@ -47,11 +48,11 @@ def dev():
     return torch.device('cuda', torch.cuda.current_device())
 
 
-def small_basis(torchani):
+def small_basis(torchani, zeta=14.1):
     return ANIBasis.from_grids(
         num_species=3, Rcr=4.2, Rca=3.1,
         EtaR=[16.0], ShfR=[0.9, 1.7, 2.5, 3.3],
-        EtaA=[8.0], Zeta=[14.1], ShfA=[0.9, 1.6, 2.3], ShfZ=[0.2, 1.2, 2.2],
+        EtaA=[8.0], Zeta=[zeta], ShfA=[0.9, 1.6, 2.3], ShfZ=[0.2, 1.2, 2.2],
         torchani=torchani)
 
 
@@ -93,6 +94,110 @@ def test_angular_kernel_matches_plain(dev, torchani, rad_mode):
     (g_k,) = torch.autograd.grad(a_k.square().sum(), d_k)
     (g_p,) = torch.autograd.grad(a_p.square().sum(), d_p)
     torch.testing.assert_close(g_k, g_p, rtol=2e-4, atol=2e-5)
+
+
+def edge_rows(caps, ra, rad_caps=None, seed=0, n_random=8):
+    """Delta planes ``[3, N, W]`` and mask ``[N, Kat]`` for rows at the
+    angular kernel's edges: 0, 1 and 2 valid lanes (one block and two),
+    every lane valid, masked lanes inside the cutoff, pairs at the cosine
+    clip (k = +-2 j exactly, collinear), then random rows. With
+    ``rad_caps`` the planes are radial: each species' angular lanes lead
+    its radial block, the radial-only lanes hold other finite neighbors."""
+    rng = np.random.RandomState(seed)
+    kat = sum(caps)
+    offs = np.cumsum((0,) + tuple(caps))[:-1]
+
+    def vec(n, lo=0.9, hi=0.97 * ra):
+        u = rng.randn(n, 3)
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        return u * rng.uniform(lo, hi, (n, 1))
+
+    def far(n):
+        return vec(n, 1.05 * ra, 2.0 * ra)
+
+    full = np.ones(kat, bool)
+    rows = [(far(kat), full)]                              # 0 valid lanes
+    d = far(kat)
+    d[offs[-1]] = vec(1)[0]
+    rows.append((d, full))                                 # 1
+    d = far(kat)
+    d[offs[0]:offs[0] + 2] = vec(2)
+    rows.append((d, full))                                 # 2, one block
+    d = far(kat)
+    d[offs[0]], d[offs[-1]] = vec(1)[0], vec(1)[0]
+    rows.append((d, full))                                 # 2, two blocks
+    rows.append((vec(kat), full))                          # every lane
+    rows.append((vec(kat), rng.rand(kat) < 0.5))           # masked inside
+    d = vec(kat)
+    q = kat // 4
+    d[:q] = vec(q, 0.9, 0.48 * ra)
+    d[q:2 * q] = d[:q] * np.where(np.arange(q) % 2, 2.0, -2.0)[:, None]
+    rows.append((d, full))                                 # at the clip
+    for _ in range(n_random):
+        rows.append((np.where(rng.rand(kat, 1) < 0.45, vec(kat), far(kat)),
+                     rng.rand(kat) < 0.9))
+    d = np.stack([r for r, _ in rows]).astype(np.float32)  # [N, Kat, 3]
+    mask = np.stack([m for _, m in rows])
+    if rad_caps is not None:
+        planes = rng.uniform(-6.0, 6.0, (len(rows), sum(rad_caps), 3))
+        roffs = np.cumsum((0,) + tuple(rad_caps))[:-1]
+        for o, ro, c in zip(offs, roffs, caps):
+            planes[:, ro:ro + c] = d[:, o:o + c]
+        d = planes.astype(np.float32)
+    return (torch.tensor(np.ascontiguousarray(d.transpose(2, 0, 1))),
+            torch.tensor(mask))
+
+
+def edge_case(grid, torchani):
+    """(basis, layout): ANI-2x's angular terms on a water tier-0 layout (32
+    H + 16 O lanes, radial blocks 40 + 20), or the (3, 3) small basis on
+    three species blocks, with its zeta 14.1 or an integer zeta (the
+    kernel's run-time integer power, no fractional part)."""
+    if grid == 'ani2x':
+        basis = dataclasses.replace(ANIBasis.ani2x(), torchani=torchani)
+        return basis, BlockedLayout(num_species=7, present=(0, 3),
+                                    rad_caps=(40, 20), ang_caps=(32, 16))
+    basis = small_basis(torchani, 8.0 if grid == 'small-zeta8' else 14.1)
+    return basis, BlockedLayout(
+        num_species=3, present=(0, 1, 2), rad_caps=(12, 9, 14),
+        ang_caps=(10, 5, 11))
+
+
+@pytest.mark.parametrize('grid', ['ani2x', 'small', 'small-zeta8'])
+@pytest.mark.parametrize('torchani, rad_mode',
+                         [(True, False), (False, False), (True, True),
+                          (False, True)],
+                         ids=['torchani', 'publication', 'torchani-rad',
+                              'publication-rad'])
+def test_angular_kernel_edge_rows(dev, grid, torchani, rad_mode):
+    """The angular kernel against its plain version on rows at its edges,
+    forward and gradient at the kernel's gates, and two launches of each
+    direction bitwise equal."""
+    basis, layout = edge_case(grid, torchani)
+    deltas, mask = edge_rows(layout.ang_caps, basis.angular_cutoff,
+                             layout.rad_caps if rad_mode else None, seed=5)
+    deltas, mask = deltas.to(dev), mask.to(dev)
+    width = layout.rad_total if rad_mode else None
+    d_k = deltas.clone().requires_grad_(True)
+    d_p = deltas.clone().requires_grad_(True)
+    a_k = cuda_aev.angular_aev(d_k, mask, basis, layout, width)
+    a_p = cuda_aev.place_angular(
+        cuda_aev.angular_aev_plain(d_p, mask, basis, layout, width),
+        basis, layout)
+    torch.testing.assert_close(a_k, a_p, rtol=3e-5, atol=3e-6)
+    # Rows with fewer than two valid lanes in a block give exact zeros.
+    assert torch.count_nonzero(a_k[:2]) == 0
+    (g_k,) = torch.autograd.grad(a_k.square().sum(), d_k)
+    (g_p,) = torch.autograd.grad(a_p.square().sum(), d_p)
+    torch.testing.assert_close(g_k, g_p, rtol=2e-4, atol=2e-5)
+    spec = cuda_aev._spec(basis, layout, width, deltas.device)
+    raw = cuda_aev.angular_fwd_cuda(deltas, mask, spec)
+    assert torch.equal(raw, cuda_aev.angular_fwd_cuda(deltas, mask, spec))
+    cot = torch.rand(raw.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    first = cuda_aev.angular_bwd_cuda(deltas, mask, cot, spec)
+    assert torch.equal(first, cuda_aev.angular_bwd_cuda(deltas, mask, cot,
+                                                        spec))
 
 
 def test_angular_wrapper_rejects_bad_input(dev):
@@ -410,16 +515,17 @@ def spread(a, b):
 
 
 # Measured spreads of two identical launches on water(150) stay far below
-# these bounds (ROADMAP section C): B.2's and B.3's backwards sum with float
-# atomics, so their last bits depend on the order of the adds.
+# these bounds (ROADMAP section C): B.2's backward sums with float atomics,
+# so its last bits depend on the order of the adds. B.3 sums in a fixed
+# order: its spread is 0.
 ATOMIC_SPREAD_BOUND = 1e-5
 
 
 def test_atomic_backwards_spread_is_bounded(dev):
     """B.2's and B.3's backward launched twice on the same inputs (the
     window path's shapes on water(150)), and the forces of two identical
-    window steps: the spread between the two is bounded, and B.4's part of
-    the step is bitwise repeatable."""
+    window steps: B.3 is bitwise repeatable, the spread of B.2 and of the
+    forces is bounded, and B.4's part of the step is bitwise repeatable."""
     model, cl, pos, box, sel = window_setup(dev)
     (cx, cy, cz), centers, caps = window_radial_inputs(model, cl, pos, sel)
     basis = model.basis
@@ -454,6 +560,7 @@ def test_atomic_backwards_spread_is_bounded(dev):
     _, f2 = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
     spreads['window step forces'] = spread(f2, f1)
     print(f'two-launch spreads (max|diff| / max|value|): {spreads}')
+    assert spreads['B.3 bwd'] == 0, spreads
     assert all(v <= ATOMIC_SPREAD_BOUND for v in spreads.values()), spreads
 
 
