@@ -21,11 +21,11 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    captured in a CUDA graph, replayed between CUDA events) beside its plain
    version (CUDA events around 20 eager calls), its bound and, for the
    ensemble's two GEMM stages, cuBLAS bf16 products at their shapes (the
-   yardstick; the port never calls them); the angular kernel's bound the
-   larger of its bytes, FP32 and SFU operations (the FP32-only bound
-   printed beside) and two launches of each direction bitwise equal; the
-   ensemble's fwd and fwdgrad also whole, graph and eager, against the
-   per-species oracle, and two launches bitwise equal;
+   yardstick; the port never calls them); the angular and window radial
+   kernels' bounds the larger of their bytes, FP32 and SFU operations (the
+   FP32-only bound printed beside) and two launches of each direction
+   bitwise equal; the ensemble's fwd and fwdgrad also whole, graph and
+   eager, against the per-species oracle, and two launches bitwise equal;
 5. the window main path: 2 selection blocks x 8 force steps as in 3, the
    final frame's energy without gradients, the launch counts (every step
    launches the window radial forward and backward, the angular kernel
@@ -34,8 +34,8 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    and one step against the same step through the plain versions;
 6. one selection and 4 steps of the window path at 26,010 atoms, where the
    planner turns on bucketing and four angular tiers: the ensemble's
-   stage kernels checked and timed as in 4 at its shapes, finite output,
-   no overflow, ms/step;
+   stage kernels and the window radial kernel's two bucketed calls checked
+   and timed as in 4 at their shapes, finite output, no overflow, ms/step;
 7. BASELINE config 5, ANI + PME Langevin MD (``models.combined.ANIWithPME``
    with ``md.integrators``), on the JAX example's settings
    (``examples/run_configs.py`` ``config5``: window ANI-2x, bf16 fused
@@ -45,15 +45,18 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    ``full((n, 1), -1)``, cutoff 5.0, bucketed window plan; charges x 0.2,
    masses O 16 and H 1; BAOAB with dt 2e-4, friction 5, kT 0.596):
    (a) at 2,601 atoms the PME window kernel's forward and backward against
-   their plain version on the inputs of one force step, timed, plus one
-   call with a forced bucketed plan and the intramolecular exclusions;
+   their plain version on the inputs of one force step, timed (the bound
+   as the window radial kernel's), two launches of each bitwise equal,
+   plus one call with a forced bucketed plan and the intramolecular
+   exclusions;
    (b) the config-5 MD at 2,601 atoms: one warm-up block, then 8 blocks of
    5 steps between CUDA events (ms/step, selection and PME included), the
    count maxima against their capacities, ``check_overflow``, the launch
    counts, and one step against the same step through the plain versions;
    (c) config 5 at 26,010 atoms (bucketed PME plan, four angular tiers):
    one warm-up block, then 2 blocks of 5 steps: finite, no overflow,
-   ms/step;
+   ms/step; then the PME window kernel checked and timed as in (a) on the
+   inputs of one force step;
 8. SchNet/CFConv, the JAX package's ``bench_cfconv_periodic`` chain at
    full width (``models.schnet.periodic_stack``: 26,010 atoms at density
    0.1, width 128, 50 Gaussians, 10 A cutoff, 6 layers, a 6x6x6 cell grid,
@@ -150,19 +153,24 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # are inside the cutoff, at the (8, 4) grid, FP32 operations and MUFU
 # operations apart (rcp, rsqrt, 4 lg2 + 12 ex2 in either direction; the
 # kernel's SASS holds each of these once); window_radial.cu per (real
-# center, window lane) pair tested and per pair inside the cutoff, R = 16
-# Gaussians.
+# center, window lane) pair tested (the distance and its test, FP32) and
+# per pair inside the cutoff, R = 16 Gaussians, FP32 and MUFU apart (one
+# rsqrt and 16 ex2 in either direction). The work stays every real center
+# times kk lanes tested, whatever lanes the kernel skips.
 ANG_FWD_OPS = 172
 ANG_BWD_OPS = 341
 ANG_SFU = 18
-RAD_TEST_OPS = 10
-RAD_FWD_OPS = 135
-RAD_BWD_OPS = 205
+RAD_TEST_OPS = 9
+RAD_FWD_OPS = 110
+RAD_BWD_OPS = 190
+RAD_SFU = 17
 # pme_window.cu per (real center, window lane) pair tested and per pair
-# inside the cutoff (one evaluation per pair; its backward makes two).
-PME_TEST_OPS = 10
-PME_FWD_OPS = 22
-PME_BWD_OPS = 38
+# inside the cutoff (one evaluation per pair in either direction; MUFU:
+# rsqrt, ex2 and rcp).
+PME_TEST_OPS = 9
+PME_FWD_OPS = 28
+PME_BWD_OPS = 48
+PME_SFU = 3
 # pair_radial.cu and cluster_radial.cu per (real center, lane) pair tested
 # and per pair inside the cutoff (R = 16 Gaussians; the pair kernel's one
 # evaluation serves both atoms of the pair); window_mask.cu per (center,
@@ -301,6 +309,30 @@ def entry(name, source, err, kernel_fn, plain_fn, nbytes, ops, ops_per_s,
                 library_ms=None)
 
 
+def sfu_bound(tested, test_ops, inside, ops, sfu):
+    """(operations, rate, bound_by label, FP32-only bound ms) of the larger
+    of a kernel's FP32 work (``test_ops`` per pair tested, ``ops`` per pair
+    inside the cutoff or triple) and its SFU work (``sfu`` per pair inside
+    or triple)."""
+    f32 = (tested * test_ops + inside * ops, F32_OPS_PER_S, 'FP32')
+    mufu = (inside * sfu, SFU_OPS_PER_S, 'SFU')
+    return max(f32, mufu, key=lambda b: b[0] / b[1]) + (1e3 * f32[0] / f32[1],)
+
+
+def bound_kind(e, bound):
+    """What bounds an entry whose operations bound is ``sfu_bound``'s."""
+    return 'bytes' if e['bound_by'] == 'bytes' else bound[2]
+
+
+def times_text(fwd, bwd, bounds):
+    """The printed times and bounds of a kernel's two directions."""
+    return ', '.join(
+        f'{name} {e["ms"]:.5f} ms (eager {e["event_ms"]:.5f}, plain '
+        f'{e["plain_ms"]:.4f}), bound {e["bound_ms"]:.5f} ms '
+        f'({bound_kind(e, bounds[name])}; FP32 only {bounds[name][3]:.5f})'
+        for name, e in (('fwd', fwd), ('bwd', bwd)))
+
+
 def merge(entries):
     """Sum entries of one kernel over several launches (tiers, species)."""
     out = dict(entries[0])
@@ -365,12 +397,8 @@ def angular_entries(deltas, mask, basis, layout, width):
     bwd_bytes = io + raw_cot.numel() * 4 + deltas.numel() * 4
     # The bound: the larger of the bytes, the FP32 operations and the SFU
     # operations; the FP32-only bound printed beside it.
-    bounds = {}
-    for name, ops in (('fwd', ANG_FWD_OPS), ('bwd', ANG_BWD_OPS)):
-        f32 = (triples * ops, F32_OPS_PER_S, 'FP32')
-        sfu = (triples * ANG_SFU, SFU_OPS_PER_S, 'SFU')
-        bounds[name] = max(f32, sfu, key=lambda b: b[0] / b[1]) + (
-            1e3 * f32[0] / f32[1],)
+    bounds = {name: sfu_bound(0, 0, triples, ops, ANG_SFU)
+              for name, ops in (('fwd', ANG_FWD_OPS), ('bwd', ANG_BWD_OPS))}
     fwd = entry('angular_aev_fwd', 'angular_aev', max_abs(a_k, a_p),
                 lambda: cuda_aev.angular_fwd_cuda(deltas, mask, spec),
                 lambda: cuda_aev.angular_aev_plain(deltas, mask, basis,
@@ -389,7 +417,8 @@ def angular_entries(deltas, mask, basis, layout, width):
     print(f'angular rows {deltas.shape[1]} lanes {spec.kat} static triples '
           f'{len(tables.jj)} (inside the cutoff {triples}): ' + ', '.join(
               f'{name} {e["ms"]:.5f} ms, bound {e["bound_ms"]:.5f} ms '
-              f'({bounds[name][2]}; FP32 only {bounds[name][3]:.5f})'
+              f'({bound_kind(e, bounds[name])}; FP32 only '
+              f'{bounds[name][3]:.5f})'
               for name, e in (('fwd', fwd), ('bwd', bwd)))
           + '; two launches bitwise equal')
     return fwd, bwd
@@ -575,10 +604,12 @@ def left_pack_entry(keys, widths, caps):
     return e
 
 
-def radial_entries(args, kwargs):
+def radial_entries(args, kwargs, label='window', calls=20):
     """(fwd, bwd) entries of the window radial kernel on one recorded call
     of ``window_radial(candx, candy, candz, centers, rc, eta, rs, cell_caps,
-    torchani, center_caps=...)``."""
+    torchani, center_caps=...)``; the bound the larger of the bytes, the FP32
+    and the SFU operations (the FP32-only bound printed beside), and two
+    launches of the backward bitwise equal."""
     cx, cy, cz, ctr = (t.detach().contiguous() for t in args[:4])
     rc, eta, rs, caps, torchani = args[4:9]
     center_caps = kwargs.get('center_caps')
@@ -610,24 +641,28 @@ def radial_entries(args, kwargs):
                   & real[:, :, None]).sum())
     tested = int(real.sum()) * geo.kk
     io = 4 * (3 * cx.numel() + ctr.numel())
+    deterministic('window radial fwd', [out_k],
+                  [cuda_window.window_radial_fwd_cuda(cx, cy, cz, ctr, spec)])
+    deterministic('window radial bwd', grads_k,
+                  cuda_window.window_radial_bwd_cuda(cx, cy, cz, ctr, g, spec))
+    bounds = {name: sfu_bound(tested, RAD_TEST_OPS, inside, ops, RAD_SFU)
+              for name, ops in (('fwd', RAD_FWD_OPS), ('bwd', RAD_BWD_OPS))}
     fwd = entry('window_radial_fwd', 'window_radial', max_abs(out_k, out_p),
                 lambda: cuda_window.window_radial_fwd_cuda(cx, cy, cz, ctr,
                                                            spec),
                 lambda: cuda_window.window_radial_plain(
                     cx, cy, cz, ctr, *args[4:9], center_caps=center_caps),
-                io + 4 * out_k.numel(),
-                tested * RAD_TEST_OPS + inside * RAD_FWD_OPS, F32_OPS_PER_S)
+                io + 4 * out_k.numel(), *bounds['fwd'][:2], calls=calls)
     bwd = entry('window_radial_bwd', 'window_radial',
                 max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
                 lambda: cuda_window.window_radial_bwd_cuda(cx, cy, cz, ctr, g,
                                                            spec),
                 lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True),
-                2 * io + 4 * g.numel(),
-                tested * RAD_TEST_OPS + inside * RAD_BWD_OPS, F32_OPS_PER_S)
-    print(f'window radial cells {cx.shape[0]} center rows {ctr.shape[1]} '
-          f'lanes {geo.kk} (pairs tested {tested}, inside {inside}): fwd '
-          f'{fwd["ms"]:.4f} ms (plain {fwd["plain_ms"]:.4f}), bwd '
-          f'{bwd["ms"]:.4f} ms (plain {bwd["plain_ms"]:.4f})')
+                2 * io + 4 * g.numel(), *bounds['bwd'][:2], calls=calls)
+    print(f'{label} window radial cells {cx.shape[0]} center rows '
+          f'{ctr.shape[1]} lanes {geo.kk} (pairs tested {tested}, inside '
+          f'{inside}): ' + times_text(fwd, bwd, bounds)
+          + '; two launches bitwise equal')
     return fwd, bwd
 
 
@@ -812,14 +847,23 @@ def window_large_phase(basis, params):
     model.check_overflow(pos, box, cell_list, sel)
     torch.cuda.synchronize()
     select_s = time.perf_counter() - t0
-    feats = []
-    with recording(ani_mod, 'ensemble_energy_grouped_rows_fused', feats):
+    feats, radials = [], []
+    with recording(ani_mod, 'ensemble_energy_grouped_rows_fused', feats), \
+            recording(window_mod, 'window_radial', radials):
         model.energy_and_forces_from_selection(params, pos, box, cell_list,
                                                sel)
     torch.cuda.synchronize()
     (args, _), = feats
     nn_entries(args[0], args[1].detach(), args[2], 'window 26k', calls=10)
     del feats, args
+    # The window radial kernel's two bucketed calls (big cells at full
+    # rows, the rest at small_caps rows), checked and timed.
+    if len(radials) != 2:
+        raise AssertionError(f'26k: {len(radials)} window radial calls, '
+                             'expected 2 (bucketing)')
+    for args, kwargs in radials:
+        radial_entries(args, kwargs, label='window 26k', calls=10)
+    del radials
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     p = pos
@@ -843,11 +887,13 @@ def window_large_phase(basis, params):
 # BASELINE config 5: ANI + PME Langevin MD.
 # ---------------------------------------------------------------------------
 
-def pme_entries(args, label):
+def pme_entries(args, label, calls=20):
     """(fwd, bwd) entries of the PME window kernel on one recorded call of
     ``pme_window(candx, candy, candz, candq, centers, excl, ncells3,
     cutoff, alpha, coulomb)``; the backward takes the main path's cotangent
-    (ones: the energy is the sum of the rows)."""
+    (ones: the energy is the sum of the rows). The bound the larger of the
+    bytes, the FP32 and the SFU operations (the FP32-only bound printed
+    beside); two launches of each direction bitwise equal."""
     planes = [t.detach().contiguous() for t in args[:5]]
     excl = args[5].contiguous()
     ncells3, cutoff, alpha, coulomb = args[6:10]
@@ -881,11 +927,16 @@ def pme_entries(args, label):
     inside = int(pairs.sum())
     tested = int(real.sum()) * spec.kk
     io = 4 * (4 * cx.numel() + ctr.numel() + excl.numel())
+    deterministic(f'{label} pme window fwd', [out_k],
+                  [cuda_pme.pme_window_fwd_cuda(*planes, excl, spec)])
+    deterministic(f'{label} pme window bwd', grads_k,
+                  cuda_pme.pme_window_bwd_cuda(*planes, excl, g, spec))
+    bounds = {name: sfu_bound(tested, PME_TEST_OPS, inside, ops, PME_SFU)
+              for name, ops in (('fwd', PME_FWD_OPS), ('bwd', PME_BWD_OPS))}
     fwd = entry('pme_window_fwd', 'pme_window', max_abs(out_k, out_p),
                 lambda: cuda_pme.pme_window_fwd_cuda(*planes, excl, spec),
                 lambda: cuda_pme.pme_window_plain(*planes, excl, *args[6:10]),
-                io + 4 * out_k.numel(),
-                tested * PME_TEST_OPS + inside * PME_FWD_OPS, F32_OPS_PER_S)
+                io + 4 * out_k.numel(), *bounds['fwd'][:2], calls=calls)
     bwd = entry('pme_window_bwd', 'pme_window',
                 max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
                 lambda: cuda_pme.pme_window_bwd_cuda(*planes, excl, g, spec),
@@ -893,14 +944,12 @@ def pme_entries(args, label):
                 # Every input read once; the four planes' and the centers'
                 # cotangents written once.
                 io + 4 * (4 * cx.numel() + ctr.numel() + g.numel()),
-                tested * PME_TEST_OPS + inside * PME_BWD_OPS, F32_OPS_PER_S)
+                *bounds['bwd'][:2], calls=calls)
     print(f'{label} pme window cells {spec.ncells} capacity {spec.c} lanes '
           f'{spec.kk} exclusions {excl.shape[2]} (pairs tested {tested}, '
-          f'inside {inside}): fwd {fwd["ms"]:.4f} ms (eager '
-          f'{fwd["event_ms"]:.4f}, plain {fwd["plain_ms"]:.4f}), bwd '
-          f'{bwd["ms"]:.4f} ms (eager {bwd["event_ms"]:.4f}, plain '
-          f'{bwd["plain_ms"]:.4f}), energy {float(out_k.sum()):.4f} vs '
-          f'{float(out_p.detach().sum()):.4f}')
+          f'inside {inside}): ' + times_text(fwd, bwd, bounds)
+          + f'; energy {float(out_k.sum()):.4f} vs '
+          f'{float(out_p.detach().sum()):.4f}; two launches bitwise equal')
     return fwd, bwd
 
 
@@ -1045,6 +1094,14 @@ def config5_phase(basis):
         raise AssertionError('config 5 at 26k: expected a bucketed PME plan '
                              'and four angular tiers')
     big.timed_run('config 5 at 26,010 atoms', C5_LARGE_BLOCKS)
+    # The PME window kernel at 26k's shapes, checked and timed.
+    calls = []
+    big_sel = big.select(big.pos)
+    with recording(cuda_pme, 'pme_window', calls):
+        big.forces(big_sel, big.pos)
+    if len(calls) != 1:
+        raise AssertionError(f'pme_window called {len(calls)} times a step')
+    pme_entries(calls[0][0], 'config 5 at 26k', calls=10)
     return fwd, bwd
 
 

@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).parent / '_build'
 SOURCES = ('angular_aev.cu', 'cfconv_bwd.cu', 'cluster_radial.cu',
            'fused_nn.cu', 'left_pack.cu', 'pair_radial.cu', 'pme_window.cu',
            'window_mask.cu', 'window_radial.cu')
+HEADERS = ('window_walk.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
@@ -87,21 +88,21 @@ _SIGNATURES = {
     'pair_radial_bwd': (_P,) * 8 + (_I,) * 4 + (_P, _I) + (_P,) * 3
                        + (_I,) + (_P,) * 2 + (_D, _D, _P),
     # candx, candy, candz, candq, centers, excl, out, ncells, nx, ny, nz, c,
-    # ne, cutoff, alpha, coulomb, stream
-    'pme_window_fwd': (_P,) * 7 + (_I,) * 6 + (_D,) * 3 + (_P,),
+    # ne, run_first, run_len (host arrays), cutoff, alpha, coulomb, stream
+    'pme_window_fwd': (_P,) * 7 + (_I,) * 6 + (_P,) * 2 + (_D,) * 3 + (_P,),
     # candx, candy, candz, candq, centers, excl, g, dcand [4, ncells, kk],
     # dctr, then as the forward from ncells on
-    'pme_window_bwd': (_P,) * 9 + (_I,) * 6 + (_D,) * 3 + (_P,),
+    'pme_window_bwd': (_P,) * 9 + (_I,) * 6 + (_P,) * 2 + (_D,) * 3 + (_P,),
     # candx, candy, candz, centers, mask (uint8), ncells, npres, cell_caps
     # (host), w2, stream
     'window_mask': (_P,) * 5 + (_I,) * 2 + (_P, _D, _P),
-    # candx, candy, candz, centers, out, ncells, npres, kk, lane_lo,
-    # lane_hi, ctr_off, self_shift (host), n_r, eta, rs (host), rc, scale,
+    # candx, candy, candz, centers, out, ncells, npres, kk, run_first,
+    # run_len, ctr_off, self_shift (host), n_r, eta, rs (host), rc, scale,
     # stream
     'window_radial_fwd': (_P,) * 5 + (_I,) * 3 + (_P,) * 4
                          + (_I, _P, _P, _D, _D, _P),
-    # candx, candy, candz, centers, g, dcand [3, ncells, kk] (zeroed),
-    # dctr, then as the forward from ncells on
+    # candx, candy, candz, centers, g, dcand [3, ncells, kk], dctr, then as
+    # the forward from ncells on
     'window_radial_bwd': (_P,) * 7 + (_I,) * 3 + (_P,) * 4
                          + (_I, _P, _P, _D, _D, _P),
 }
@@ -127,7 +128,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f'libnnpops_kernels_{digest.hexdigest()[:16]}.so'
 

@@ -53,6 +53,8 @@ backward kernel under autograd (first order, as the Pallas VJP), or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -160,6 +162,22 @@ def _lane_slots(ncells3, c: int, device) -> Tensor:
                                device)[1]
 
 
+def window_runs(c: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's run table: (first lane, lanes) of run e, the ``c``
+    slots of stencil entry e in rank order (lanes ``[e*c, (e+1)*c)``). The
+    kernel cuts each run at its last occupied lane (x < ``EMPTY_ROW``; the
+    slots fill by rank) and skips, per center row, every run whose box of
+    occupied positions lies beyond the cutoff."""
+    first = np.arange(27, dtype=np.int64) * int(c)
+    return first, np.full(27, int(c), np.int64)
+
+
+@functools.lru_cache(maxsize=8)
+def _run_arrays(c: int):
+    """:func:`window_runs` as the kernel's ctypes host arrays."""
+    return tuple((ctypes.c_int * 27)(*a.tolist()) for a in window_runs(c))
+
+
 def pme_window_plain(candx: Tensor, candy: Tensor, candz: Tensor,
                      candq: Tensor, centers: Tensor, excl: Tensor, ncells3,
                      cutoff: float, alpha: float, coulomb: float) -> Tensor:
@@ -196,10 +214,11 @@ class _PmeSpec:
         self.ne = int(num_excl)
         self.cutoff, self.alpha, self.coulomb = (float(cutoff), float(alpha),
                                                  float(coulomb))
+        self.run_first, self.run_len = _run_arrays(self.c)
 
     def scalars(self, stream: int):
-        return (self.ncells, *self.ncells3, self.c, self.ne, self.cutoff,
-                self.alpha, self.coulomb, stream)
+        return (self.ncells, *self.ncells3, self.c, self.ne, self.run_first,
+                self.run_len, self.cutoff, self.alpha, self.coulomb, stream)
 
 
 def _check_inputs(spec: _PmeSpec, candx, candy, candz, candq, centers, excl):

@@ -29,6 +29,13 @@ d2 = 0) and writes rows that no caller reads; their cotangents are 0 in
 both, and every such pair has a zero delta, so no cotangent of a real slot
 changes.
 
+The kernel walks the window in runs (:func:`window_runs`): run ``27*s +
+e`` is present species s's lanes of stencil entry e, ``cell_caps[s]``
+contiguous lanes. It cuts each run at its last occupied lane (x <
+``EMPTY_ROW``; the selection fills a cell's slots by rank, so the occupied
+lanes lead the run) and skips, per center row, every run whose box of
+occupied positions lies beyond the cutoff.
+
 Dispatch: a CPU tensor runs :func:`window_radial_plain` (gradients by
 autograd); a CUDA tensor launches the forward kernel, and the backward
 kernel under autograd, or raises.
@@ -54,6 +61,7 @@ EMPTY_ROW = 0.5 * FAR
 SELF_STENCIL_INDEX = 13
 MAX_SPECIES = 8     # csrc/window_radial.cu limits
 MAX_RADIAL = 32
+STENCIL_ENTRIES = 27
 
 
 class WindowGeometry:
@@ -86,6 +94,19 @@ class WindowGeometry:
             row_sp[self.ctr_offs[s]:] = s
         self.self_lane = (np.arange(self.c_ctr)
                           + np.asarray(self.self_shift)[row_sp]).astype(np.int64)
+
+
+def window_runs(geo: WindowGeometry) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's run table: (first lane, lanes) of run ``27*s + e``,
+    present species s's lanes of stencil entry e (``cell_caps[s]`` lanes
+    from ``bounds[s][0] + e*cell_caps[s]``). The runs tile ``[0, kk)`` in
+    order, so each species block is the contiguous runs of its species."""
+    first, length = [], []
+    for (lo, _), cs in zip(geo.bounds, geo.cell_caps):
+        for e in range(STENCIL_ENTRIES):
+            first.append(lo + e * cs)
+            length.append(cs)
+    return np.asarray(first, np.int64), np.asarray(length, np.int64)
 
 
 @functools.lru_cache(maxsize=32)
@@ -153,8 +174,9 @@ class _WindowSpec:
         self.out_w = geo.npres * len(rs)
         ints = ctypes.c_int * (MAX_SPECIES + 1)
         floats = ctypes.c_float * MAX_RADIAL
-        self.lane_lo = ints(*(lo for lo, _ in geo.bounds))
-        self.lane_hi = ints(*(hi for _, hi in geo.bounds))
+        run_first, run_len = window_runs(geo)
+        self.run_first = (ctypes.c_int * len(run_first))(*run_first.tolist())
+        self.run_len = (ctypes.c_int * len(run_len))(*run_len.tolist())
         self.ctr_off = ints(*geo.ctr_offs, geo.c_ctr)
         self.self_shift = ints(*geo.self_shift)
         self.eta = floats(*etas)
@@ -164,8 +186,8 @@ class _WindowSpec:
         self.scale = 0.25 if torchani else 1.0
 
     def scalars(self, ncells: int, stream: int):
-        return (ncells, self.geo.npres, self.geo.kk, self.lane_lo,
-                self.lane_hi, self.ctr_off, self.self_shift, self.n_r,
+        return (ncells, self.geo.npres, self.geo.kk, self.run_first,
+                self.run_len, self.ctr_off, self.self_shift, self.n_r,
                 self.eta, self.rs, self.rc, self.scale, stream)
 
 
@@ -215,8 +237,8 @@ def window_radial_bwd_cuda(candx, candy, candz, centers, g,
         raise ValueError(f'cotangent must be float32 [ncells, '
                          f'{spec.geo.c_ctr}, {spec.out_w}]')
     _kernels.require_cuda(g)
-    # The kernel adds each block's candidate sums into zeroed planes.
-    dcand = torch.zeros(3, ncells, spec.geo.kk, dtype=torch.float32,
+    # The kernel writes every lane of the three planes once.
+    dcand = torch.empty(3, ncells, spec.geo.kk, dtype=torch.float32,
                         device=candx.device)
     dctr = torch.empty_like(centers)
     if ncells:

@@ -17,8 +17,10 @@ and measures, in one process:
    device kernels per step, and the kernels that take the most time. The
    device busy share is that kernel time over the unprofiled CUDA-event
    step time of phase 1 (the profiler slows the host, so its own wall time
-   is not the step's); the angular kernel's (B.3) forward and backward
-   device time per step and their share of the step's;
+   is not the step's); the forward and backward device time per step and
+   their share of the step's of the angular kernel (B.3), the window radial
+   kernel (B.2) and, with ``--impl combined``, the PME window kernel
+   (B.5);
 4. the neighbor gather and its autograd adjoint at this run's shapes (the
    payload gather of 'pallas', the angular tiers' gathers of 'window'),
    with ``index_select`` (an ``index_add`` adjoint, what the port uses)
@@ -367,13 +369,17 @@ def main(argv=None):
     res['device_kernel_ms_per_step'] = device_ms
     res['device_kernels_per_step'] = len(kernels) / STEPS
     res['busy_share'] = device_ms / step_ms
-    for part, tag in (('fwd', 'angular_fwd_kernel'),
-                      ('bwd', 'angular_bwd_kernel')):
-        tot, cnt = map(sum, zip(*[v for k, v in by_name.items() if tag in k]
-                                or [(0.0, 0)]))
-        res[f'angular_{part}'] = {'ms_per_step': tot / 1e3 / STEPS,
-                                  'share': tot / 1e3 / STEPS / device_ms,
-                                  'per_step': cnt / STEPS}
+    noted = ['angular', 'window_radial'] + (['pme_window'] if combined
+                                            else [])
+    for kernel in noted:
+        for part in ('fwd', 'bwd'):
+            tag = f'{kernel}_{part}_kernel'
+            tot, cnt = map(sum, zip(*[v for k, v in by_name.items()
+                                      if tag in k] or [(0.0, 0)]))
+            res[f'{kernel}_{part}'] = {
+                'ms_per_step': tot / 1e3 / STEPS,
+                'share': tot / 1e3 / STEPS / device_ms,
+                'per_step': cnt / STEPS}
     res['top_kernels'] = [
         {'name': name[:90], 'ms_per_step': tot / 1e3 / STEPS,
          'share': tot / 1e3 / STEPS / device_ms,

@@ -237,3 +237,54 @@ def test_wrapper_dispatch():
     with pytest.raises(ValueError, match='no PME window kernel'):
         cuda_pme.pme_window(x.to('meta'), x, x, x, ctr, ex, (3, 3, 3), 1.0,
                             0.3, 1.0)
+
+
+def occupied_lanes_lead_runs(planes_x, first, length):
+    """Whether in every cell each run's occupied lanes (x < EMPTY_ROW) come
+    before its empty ones."""
+    occ = planes_x < cuda_pme.EMPTY_ROW
+    for f, n in zip(first, length):
+        run = occ[:, f:f + n]
+        if (run[:, 1:] & ~run[:, :-1]).any():
+            return False
+    return True
+
+
+@pytest.mark.parametrize('ncells3, c', [((3, 3, 3), 8), ((4, 5, 6), 32)])
+def test_window_runs_match_lane_slots(ncells3, c):
+    """The kernel's run table (``cuda_pme.window_runs``) against the window's
+    lane slot ids (``cuda_pme._lane_slots``): 27 runs of c lanes tile the
+    window in order, run e holds the slots of stencil entry e's cell in
+    rank order, and the kernel's slot id of a run's k-th lane (its stencil
+    cell's id times c plus k, the cell found by periodic offsets without
+    division) equals the lane's slot id."""
+    first, length = cuda_pme.window_runs(c)
+    assert len(first) == 27 and (length == c).all()
+    assert first[0] == 0 and (first[1:] == first[:-1] + length[:-1]).all()
+    slots = cuda_pme._lane_slots(ncells3, c, 'cpu').numpy()
+    nx, ny, nz = ncells3
+    for cell in range(nx * ny * nz):
+        az, axy = cell % nz, cell // nz
+        ay, ax = axy % ny, axy // ny
+        for e in range(27):
+            b = [ax + e // 9 - 1, ay + (e // 3) % 3 - 1, az + e % 3 - 1]
+            b = [v + (n if v < 0 else -n if v >= n else 0)
+                 for v, n in zip(b, ncells3)]
+            want = ((b[0] * ny + b[1]) * nz + b[2]) * c + np.arange(c)
+            np.testing.assert_array_equal(
+                slots[cell, first[e]:first[e] + length[e]], want)
+
+
+def test_occupied_lanes_lead_each_run(setup):
+    """The window the host side builds fills each stencil entry's run by
+    rank, so its occupied lanes lead the run: the kernel cuts each run at
+    its last occupied lane and then tests no empty lane."""
+    water, excl = setup
+    pme, _ = both(excl)
+    ncells3, c = pme.plan_direct_window(water.box, CUTOFF, water.positions)
+    cx = cuda_pme.pme_window_inputs(
+        t(water.positions), t(water.charges), t(water.box), pme.exclusions,
+        ncells3, c)[0].detach().numpy()
+    first, length = cuda_pme.window_runs(c)
+    assert (cx >= cuda_pme.EMPTY_ROW).any()
+    assert occupied_lanes_lead_runs(cx, first, length)

@@ -12,9 +12,13 @@ import torch
 from nnpops_tpu.ops.pallas_window import window_radial_aev
 from nnpops_tpu_torch.config import ANIBasis
 from nnpops_tpu_torch.models.ani import ANIModel
-from nnpops_tpu_torch.neighbors.window import radial_window_inputs
-from nnpops_tpu_torch.ops.cuda_window import (EMPTY_ROW, window_radial,
-                                              window_radial_plain)
+from nnpops_tpu_torch.neighbors.window import (_grid_device_tables,
+                                               _window_tables,
+                                               radial_window_inputs)
+from nnpops_tpu_torch.ops.cuda_window import (EMPTY_ROW, WindowGeometry,
+                                              window_radial,
+                                              window_radial_plain,
+                                              window_runs)
 from nnpops_tpu_torch.utils import make_water_box
 
 SKIN = 0.25
@@ -112,3 +116,53 @@ def test_window_radial_needs_eta_per_radial_function(windows):
     with pytest.raises(ValueError, match='radial_eta'):
         window_radial_plain(*t_in, basis.radial_cutoff, basis.radial_eta[:1],
                             basis.radial_rs, caps, basis.torchani)
+
+
+@pytest.mark.parametrize('packed', [False, True],
+                         ids=['full-rows', 'center-caps'])
+def test_window_runs_match_lane_slots(packed):
+    """The kernel's run table (``cuda_window.window_runs``) against the
+    window's lane table (``_grid_device_tables``, the slot of every window
+    lane) and ``WindowGeometry``: runs tile the window in order, run 27 s +
+    e holds present species s's slots of stencil entry e's cell in rank
+    order inside species s's lane block, and every center row's self lane
+    is its own rank in run (s, 13). On water(150)'s selection the occupied
+    lanes lead every run (the slots fill by rank), so the kernel, which
+    cuts each run at its last occupied lane, tests no empty lane."""
+    water = make_water_box(150, seed=0)
+    model = ANIModel.from_atomic_numbers(water.atomic_numbers,
+                                         ANIBasis.ani2x()
+                                         ).with_blocked_layout(
+        water.positions, water.box, margin=1.15, impl='window', skin=SKIN)
+    cl = model.create_cell_list(water.box, skin=SKIN)
+    caps = tuple(model.blocked_layout.cell_caps)
+    center_caps = tuple(max(c - 4, 1) for c in caps) if packed else None
+    geo = WindowGeometry(caps, center_caps)
+    first, length = window_runs(geo)
+    assert len(first) == 27 * geo.npres
+    assert first[0] == 0 and (first[1:] == first[:-1] + length[:-1]).all()
+    assert first[-1] + length[-1] == geo.kk
+    grid = tuple(int(x) for x in cl.ncells)
+    _, cand_slot = _grid_device_tables(grid, caps, torch.device('cpu'))
+    cand_slot = cand_slot.numpy()
+    stencil = _window_tables(grid)[1]
+    offs = np.cumsum((0,) + caps)[:-1]
+    for s, ((lo, hi), cs) in enumerate(zip(geo.bounds, caps)):
+        for e in range(27):
+            r = 27 * s + e
+            assert length[r] == cs and lo <= first[r] < first[r] + cs <= hi
+            np.testing.assert_array_equal(
+                cand_slot[:, first[r]:first[r] + cs],
+                stencil[:, e:e + 1] * geo.c + offs[s] + np.arange(cs))
+    for s, (o, n) in enumerate(zip(geo.ctr_offs, geo.center_caps)):
+        rows = np.arange(o, o + n)
+        np.testing.assert_array_equal(geo.self_lane[rows],
+                                      first[27 * s + 13] + rows - o)
+    pos, box = torch.tensor(water.positions), torch.tensor(water.box)
+    win, _ = radial_window_inputs(cl, pos, model.select(pos, box, cl),
+                                  model.blocked_layout)
+    occ = win[0].numpy() < EMPTY_ROW
+    assert (~occ).any()
+    for f, n in zip(first, length):
+        run = occ[:, f:f + n]
+        assert not (run[:, 1:] & ~run[:, :-1]).any()
