@@ -172,15 +172,21 @@ PME_FWD_OPS = 28
 PME_BWD_OPS = 48
 PME_SFU = 3
 # pair_radial.cu and cluster_radial.cu per (real center, lane) pair tested
-# and per pair inside the cutoff (R = 16 Gaussians; the pair kernel's one
-# evaluation serves both atoms of the pair); window_mask.cu per (center,
-# lane) pair; left_pack_lanes per mask byte.
-PAIR_TEST_OPS = 10
-PAIR_FWD_OPS = 100
-PAIR_BWD_OPS = 150
-CLUSTER_TEST_OPS = 10
-CLUSTER_FWD_OPS = 120
-CLUSTER_BWD_OPS = 200
+# (the distance and its test) and per pair inside the cutoff, R = 16
+# Gaussians, FP32 and MUFU apart: the z-pair kernel's one evaluation of a
+# pair adds each term to both of its sums (forward 102, backward 174 with
+# the three cotangent sums); the cluster kernel's forward 86, backward 155;
+# MUFU rsqrt, cos and 16 ex2 forward, and sin backward. The work stays
+# every real center times every lane tested, whatever lanes the kernels
+# skip; window_mask.cu per (center, lane) pair; left_pack_lanes per mask
+# byte.
+PAIR_TEST_OPS = 9
+PAIR_FWD_OPS = 102
+PAIR_BWD_OPS = 174
+CLUSTER_TEST_OPS = 9
+CLUSTER_FWD_OPS = 86
+CLUSTER_BWD_OPS = 155
+PAIR_SFU = {'fwd': 18, 'bwd': 19}      # both kernels, per pair inside
 MASK_OPS = 10
 LANE_PACK_OPS = 3
 
@@ -1323,11 +1329,56 @@ def deterministic(label, first, again):
             raise AssertionError(f'{label}: two launches differ')
 
 
+def culled_tests(pos, ctr, runs, rc):
+    """The (real center, lane) distance tests the z-pair kernel makes after
+    its cuts: for every real row of ``ctr [B, c, 3]`` and run (first,
+    lanes) of the lane positions ``pos [B, n, 3]``, the run's lanes up to
+    its last occupied one where the box of its occupied lanes lies inside
+    the cutoff (the box gap rounded as the kernel rounds it)."""
+    real = ctr[:, :, 0] < cuda_window.EMPTY_ROW
+    big = torch.tensor(3.0e38, device=pos.device)
+    total = 0
+    for first, n_lanes in runs:
+        run = pos[:, first:first + n_lanes]
+        occ = run[:, :, 0] < cuda_window.EMPTY_ROW
+        idx = torch.arange(1, n_lanes + 1, device=pos.device)
+        cut = torch.where(occ, idx, 0).amax(1)
+        lo = torch.where(occ[..., None], run, big).amin(1)
+        hi = torch.where(occ[..., None], run, -big).amax(1)
+        gap = torch.clamp(torch.maximum(lo[:, None] - ctr, ctr - hi[:, None]),
+                          min=0.0)
+        d2 = gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1] \
+            + gap[..., 2] * gap[..., 2]
+        live = (d2 < float(rc) ** 2) & real & (cut[:, None] > 0)
+        total += int((live * cut[:, None]).sum())
+    return total
+
+
+def chunk_tests(jx, ctr, bounds):
+    """The (real center, lane) distance tests the cluster kernel makes: per
+    i-cluster, every real row against every lane of each 32-lane chunk of a
+    species block that holds an occupied lane."""
+    real = (ctr[:, :, 0] < cuda_window.EMPTY_ROW).sum(1)
+    total = 0
+    for lo, hi in bounds:
+        for b in range(lo, hi, 32):
+            occ = (jx[:, b:min(b + 32, hi)] < cuda_window.EMPTY_ROW).any(1)
+            total += int((occ * real).sum()) * (min(b + 32, hi) - b)
+    return total
+
+
+def radial_bounds(tested, test_ops, inside, fwd_ops, bwd_ops):
+    """sfu_bound of a pair kernel's two directions."""
+    return {name: sfu_bound(tested, test_ops, inside, ops, PAIR_SFU[name])
+            for name, ops in (('fwd', fwd_ops), ('bwd', bwd_ops))}
+
+
 def pair_entries(args, label):
     """(fwd, bwd) entries of the z-pair kernel on one recorded call of
     ``pair_radial(ctr, z3, shift, rc, eta, rs, ncells3, cell_caps,
     torchani)``; the backward takes the cotangents of sum(out_a^2) +
-    sum(out_b^2)."""
+    sum(out_b^2). The bound is the larger of the bytes, the FP32 and the
+    SFU operations (the FP32-only bound printed beside)."""
     ctr, z3, shift = (t.detach().contiguous() for t in args[:3])
     rest = args[3:9]
     rc, eta, rs, ncells3, caps, torchani = rest
@@ -1367,28 +1418,31 @@ def pair_entries(args, label):
     inside = int(((d2 < float(rc) ** 2) & real[:, :, None, None]
                   & ~self_pair).sum())
     tested = int(real.sum()) * 5 * geo.ll
+    first, length, _ = cuda_zpair.pair_runs(geo)
+    culled = culled_tests(
+        lanes.permute(0, 1, 3, 2).reshape(geo.ncells, 5 * geo.ll, 3), ctr,
+        [(d * geo.ll + int(f), int(n)) for d in range(5)
+         for f, n in zip(first, length)], rc)
     io = 4 * (ctr.numel() + z3.numel() + shift.numel())
+    bounds = radial_bounds(tested, PAIR_TEST_OPS, inside, PAIR_FWD_OPS,
+                           PAIR_BWD_OPS)
     fwd = entry('pair_radial_fwd', 'pair_radial',
                 max(max_abs(a, b) for a, b in zip(out_k, out_p)),
                 lambda: cuda_zpair.pair_radial_fwd_cuda(ctr, z3, shift, spec),
                 lambda: cuda_zpair.pair_radial_plain(ctr, z3, shift, *rest),
-                io + 4 * sum(o.numel() for o in out_k),
-                tested * PAIR_TEST_OPS + inside * PAIR_FWD_OPS, F32_OPS_PER_S)
+                io + 4 * sum(o.numel() for o in out_k), *bounds['fwd'][:2])
     bwd = entry('pair_radial_bwd', 'pair_radial',
                 max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
                 lambda: cuda_zpair.pair_radial_bwd_cuda(ctr, z3, shift, *g,
                                                         spec),
                 lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True),
-                2 * io + 4 * sum(t.numel() for t in g),
-                tested * PAIR_TEST_OPS + inside * PAIR_BWD_OPS, F32_OPS_PER_S)
+                2 * io + 4 * sum(t.numel() for t in g), *bounds['bwd'][:2])
     print(f'{label} pair radial cells {geo.ncells} center rows {geo.c} lanes '
-          f'5 x {geo.ll} (pairs tested {tested}, inside {inside}): fwd '
-          f'{fwd["ms"]:.4f} ms (eager {fwd["event_ms"]:.4f}, plain '
-          f'{fwd["plain_ms"]:.4f}, bound {fwd["bound_ms"]:.5f} '
-          f'{fwd["bound_by"]}), bwd {bwd["ms"]:.4f} ms (eager '
-          f'{bwd["event_ms"]:.4f}, plain {bwd["plain_ms"]:.4f}, bound '
-          f'{bwd["bound_ms"]:.5f} {bwd["bound_by"]}), max|err| '
-          f'{fwd["max_abs_err"]:.3g} / {bwd["max_abs_err"]:.3g}')
+          f'5 x {geo.ll} (pairs tested {tested}, after the cuts and box '
+          f'tests {culled}, inside {inside}): '
+          + times_text(fwd, bwd, bounds) + f'; max|err| '
+          f'{fwd["max_abs_err"]:.3g} / {bwd["max_abs_err"]:.3g}; two launches '
+          'bitwise equal')
     return fwd, bwd
 
 
@@ -1396,7 +1450,8 @@ def cluster_entries(args, label):
     """(fwd, bwd) entries of the cluster-pair kernel on one recorded call of
     ``cluster_radial(jx, jy, jz, centers, rc, eta, rs, cl, lane_caps,
     self_block, torchani)`` (one i-species); the backward takes the
-    cotangent of sum(out^2)."""
+    cotangent of sum(out^2). The bound is the larger of the bytes, the FP32
+    and the SFU operations (the FP32-only bound printed beside)."""
     planes = [t.detach().contiguous() for t in args[:4]]
     rest = args[4:11]
     rc, eta, rs, cl, lane_caps, self_block, torchani = rest
@@ -1428,28 +1483,25 @@ def cluster_entries(args, label):
     inside = int(((d2 < float(rc) ** 2) & real[:, :, None]
                   & (lane[None, :] != row[:, None] + geo.self_off)).sum())
     tested = int(real.sum()) * geo.lanes
+    culled = chunk_tests(jx, ctr, geo.bounds)
     io = 4 * (3 * jx.numel() + ctr.numel())
+    bounds = radial_bounds(tested, CLUSTER_TEST_OPS, inside, CLUSTER_FWD_OPS,
+                           CLUSTER_BWD_OPS)
     fwd = entry('cluster_radial_fwd', 'cluster_radial', max_abs(out_k, out_p),
                 lambda: cuda_cluster.cluster_radial_fwd_cuda(*planes, spec),
                 lambda: cuda_cluster.cluster_radial_plain(*planes, *rest),
-                io + 4 * out_k.numel(),
-                tested * CLUSTER_TEST_OPS + inside * CLUSTER_FWD_OPS,
-                F32_OPS_PER_S)
+                io + 4 * out_k.numel(), *bounds['fwd'][:2])
     bwd = entry('cluster_radial_bwd', 'cluster_radial',
                 max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
                 lambda: cuda_cluster.cluster_radial_bwd_cuda(*planes, g,
                                                              spec),
                 lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True),
-                2 * io + 4 * g.numel(),
-                tested * CLUSTER_TEST_OPS + inside * CLUSTER_BWD_OPS,
-                F32_OPS_PER_S)
+                2 * io + 4 * g.numel(), *bounds['bwd'][:2])
     print(f'{label} cluster radial i-species block {int(self_block)}: '
           f'{jx.shape[0]} clusters x {geo.lanes} lanes (pairs tested '
-          f'{tested}, inside {inside}): fwd {fwd["ms"]:.4f} ms (eager '
-          f'{fwd["event_ms"]:.4f}, plain {fwd["plain_ms"]:.4f}, bound '
-          f'{fwd["bound_ms"]:.5f} {fwd["bound_by"]}), bwd {bwd["ms"]:.4f} '
-          f'ms (eager {bwd["event_ms"]:.4f}, plain {bwd["plain_ms"]:.4f}, '
-          f'bound {bwd["bound_ms"]:.5f} {bwd["bound_by"]})')
+          f'{tested}, after the empty-chunk cut {culled}, inside '
+          f'{inside}): ' + times_text(fwd, bwd, bounds) + '; two launches '
+          'bitwise equal')
     return fwd, bwd
 
 

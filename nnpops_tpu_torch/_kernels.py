@@ -79,8 +79,8 @@ _SIGNATURES = {
     # mask (uint8), lanes, counts, then as left_pack from n_rows on
     'left_pack_lanes': (_P,) * 3 + (_I,) * 4 + (_P,) * 3,
     # ctr, z3, shift, out_a, out_b, nx, ny, nz, npres, row_off (host),
-    # n_chunks, chunk_lo, chunk_hi, chunk_sp (host), n_r, eta, rs (host),
-    # rc, scale, stream
+    # n_runs, run_first, run_len, run_sp (host: pair_runs), n_r, eta,
+    # rs (host), rc, scale, stream
     'pair_radial_fwd': (_P,) * 5 + (_I,) * 4 + (_P, _I) + (_P,) * 3
                        + (_I,) + (_P,) * 2 + (_D, _D, _P),
     # ctr, z3, shift, ga, gb, dctr, dz5 [5, ncells, 3, L], dsh, then as the

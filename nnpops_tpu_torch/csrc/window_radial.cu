@@ -103,16 +103,6 @@ __device__ __forceinline__ int self_lane_of(int row, const WinParams& p) {
   return row + p.self_shift[s_row];
 }
 
-// r = sqrt(max(d2, 1e-12)) and 1/r from one rsqrt.approx; near rc, r as
-// PyTorch rounds it, so that min(r, rc) takes the plain version's branch.
-__device__ __forceinline__ void radius(float d2, const WinParams& p,
-                                       float& r, float& rinv) {
-  const float m = fmaxf(d2, 1e-12f);
-  rinv = walk::rsqrt_approx(m);
-  r = m * rinv;
-  if (r > p.r_near) r = __fsqrt_rn(m);
-}
-
 // Shared memory of a kernel, as offsets from the dynamic __shared__ array:
 // the stage, per warp a live-run table (64 ints) and queue (96 ints), the
 // centers, the real rows and their count; then the forward's per-warp
@@ -191,16 +181,6 @@ __device__ __forceinline__ void stage(const float* __restrict__ cx,
       [&] { walk::list_real_rows(rows.ctr, p.c_ctr, rows.srow, rows.nreal); });
 }
 
-// Whether window lane pos pairs with the center c: inside the cutoff and
-// not the center's own lane.
-__device__ __forceinline__ bool pairs_with(const walk::Stage& s, int pos,
-                                           float4 c, const WinParams& p) {
-  const float4 v = s.lane[pos];
-  const float d2 = walk::dist2_rn(__fsub_rn(v.x, c.x), __fsub_rn(v.y, c.y),
-                                  __fsub_rn(v.z, c.z));
-  return d2 < p.rc2 && pos != __float_as_int(c.w);
-}
-
 template <int RP>
 __global__ void __launch_bounds__(walk::kMaxThreads)
 window_radial_fwd_kernel(const float* __restrict__ cx,
@@ -247,7 +227,7 @@ window_radial_fwd_kernel(const float* __restrict__ cx,
                                              c.x, c.y, c.z, p.rc2, tbl);
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     walk::walk(
-        L, queue, [&](int pos) { return pairs_with(s, pos, c, p); },
+        L, queue, [&](int pos) { return walk::pairs_with(s, pos, c, p.rc2); },
         [&](int pos, bool on) {
           // This thread's pair: r clamped to rc and fc (0 without one).
           float rm = 0.f, fc = 0.f;
@@ -257,7 +237,7 @@ window_radial_fwd_kernel(const float* __restrict__ cx,
                                             __fsub_rn(v.y, c.y),
                                             __fsub_rn(v.z, c.z));
             float r, rinv;
-            radius(d2, p, r, rinv);
+            walk::radius(d2, p.r_near, r, rinv);
             fc = fc_poly_t(fminf(__fmul_rn(d2, p.inv_rc2), 1.f));
             rm = fminf(r, p.rc);
           }
@@ -343,7 +323,7 @@ window_radial_bwd_kernel(const float* __restrict__ cx,
       float ax = 0.f, ay = 0.f, az = 0.f;
       walk::walk(
           L, queue,
-          [&](int pos) { return pairs_with(s, pos, c, p); },
+          [&](int pos) { return walk::pairs_with(s, pos, c, p.rc2); },
           [&](int pos, bool on) {
             if (!on) return;
             const float4 v = s.lane[pos];
@@ -351,7 +331,7 @@ window_radial_bwd_kernel(const float* __restrict__ cx,
                         dz = __fsub_rn(v.z, c.z);
             const float d2 = walk::dist2_rn(dx, dy, dz);
             float r, rinv;
-            radius(d2, p, r, rinv);
+            walk::radius(d2, p.r_near, r, rinv);
             const float t_raw = __fmul_rn(d2, p.inv_rc2);
             const float t = fminf(t_raw, 1.f);
             const float fc = fc_poly_t(t);

@@ -1,6 +1,8 @@
 // The walk of one cell's 27-cell window that the window radial kernel
 // (window_radial.cu, B.2) and the PME direct-window kernel (pme_window.cu,
-// B.5) share. Included by both; no entry point of its own.
+// B.5) share; the z-pair radial kernel (pair_radial.cu, B.9) walks its
+// z-triple columns with it, and the cluster-pair kernel (cluster_radial.cu,
+// B.8) uses its helpers. No entry point of its own.
 //
 // A block owns one cell. It stages the cell's window of kk lanes in shared
 // memory. The lanes come in runs: a run is one (species block, stencil
@@ -79,6 +81,27 @@ __device__ __forceinline__ int order_key(float f) {
 __device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
+}
+
+// dx = v - c, ... and d2 = dx*dx + dy*dy + dz*dz, rounded op by op as
+// PyTorch rounds them.
+__device__ __forceinline__ float dist2_to(float4 v, float4 c, float& dx,
+                                          float& dy, float& dz) {
+  dx = __fsub_rn(v.x, c.x);
+  dy = __fsub_rn(v.y, c.y);
+  dz = __fsub_rn(v.z, c.z);
+  return dist2_rn(dx, dy, dz);
+}
+
+// r = sqrt(max(d2, 1e-12)) and 1/r from one rsqrt.approx; above r_near
+// (within 1e-6 of the cutoff), r as PyTorch's sqrt rounds it, so that
+// min(r, rc) takes the plain version's branch.
+__device__ __forceinline__ void radius(float d2, float r_near, float& r,
+                                       float& rinv) {
+  const float m = fmaxf(d2, 1e-12f);
+  rinv = rsqrt_approx(m);
+  r = m * rinv;
+  if (r > r_near) r = __fsqrt_rn(m);
 }
 
 // The run table (host arrays copied into the kernel's parameters).
@@ -314,6 +337,15 @@ __device__ inline void walk(const LiveRuns& L, int* queue, Test test,
     batch(on ? queue[lane] : 0, on);
   }
   __syncwarp();
+}
+
+// Whether staged lane pos pairs with the center c (its own lane's index in
+// the bits of c.w): inside the cutoff and not its own lane.
+__device__ __forceinline__ bool pairs_with(const Stage& s, int pos, float4 c,
+                                           float rc2) {
+  float dx, dy, dz;
+  return dist2_to(s.lane[pos], c, dx, dy, dz) < rc2 &&
+         pos != __float_as_int(c.w);
 }
 
 // Sum over the warp in a fixed order (butterfly).

@@ -49,7 +49,7 @@ from .cuda_window import EMPTY_ROW, _radial_params
 HALF_OFFSETS = ((0, 0), (1, 0), (0, 1), (1, 1), (1, -1))
 MAX_SPECIES = 8     # csrc/pair_radial.cu limits
 MAX_RADIAL = 16
-MAX_CHUNKS = 64
+MAX_RUNS = 40
 
 
 @functools.lru_cache(maxsize=16)
@@ -128,9 +128,8 @@ def _fold_b(out_b: torch.Tensor, ncells3, cell_caps, out_w: int) -> torch.Tensor
 
 class PairGeometry:
     """Static row and lane geometry of one (grid, cell_caps): the species
-    row blocks, the z-triple lane blocks, the self lanes of the own column
-    and the kernel's lane chunks (at most 32 lanes inside one species
-    block)."""
+    row blocks, the z-triple lane blocks and the self lanes of the own
+    column."""
 
     def __init__(self, ncells3: Tuple[int, int, int],
                  cell_caps: Tuple[int, ...]):
@@ -147,10 +146,24 @@ class PairGeometry:
         self.self_lane = np.concatenate([
             np.arange(offs[s], offs[s + 1]) + 2 * offs[s] + cs
             for s, cs in enumerate(self.cell_caps)]).astype(np.int64)
-        chunks = []
-        for s, (lo, hi) in enumerate(self.lane_bounds):
-            chunks += [(b, min(b + 32, hi), s) for b in range(lo, hi, 32)]
-        self.chunks = tuple(chunks)
+
+
+def pair_runs(geo: PairGeometry) -> Tuple[np.ndarray, ...]:
+    """The kernel's run table: (first lane, lanes, species) of each z-run,
+    one species' slots of one z-cell of a z-triple (``cell_caps[s]`` lanes
+    from ``lane_bounds[s][0] + dz * cell_caps[s]``, dz = 0, 1, 2 for z-1,
+    z, z+1), cut into pieces of at most 32 lanes. The runs tile ``[0, L)``
+    in order, species-major; the kernel walks each in each of the five
+    columns."""
+    first, length, species = [], [], []
+    for s, ((lo, _), cs) in enumerate(zip(geo.lane_bounds, geo.cell_caps)):
+        for dz in range(3):
+            for b in range(0, cs, 32):
+                first.append(lo + dz * cs + b)
+                length.append(min(32, cs - b))
+                species.append(s)
+    return (np.asarray(first, np.int64), np.asarray(length, np.int64),
+            np.asarray(species, np.int64))
 
 
 @functools.lru_cache(maxsize=32)
@@ -209,22 +222,22 @@ class _PairSpec:
     def __init__(self, geo: PairGeometry, radial_cutoff, radial_eta,
                  radial_rs, torchani):
         etas, rs = _radial_params(radial_eta, radial_rs)
+        first, length, species = pair_runs(geo)
         if (geo.npres > MAX_SPECIES or len(rs) > MAX_RADIAL
-                or len(geo.chunks) > MAX_CHUNKS):
+                or len(first) > MAX_RUNS):
             raise NotImplementedError(
                 f'pair radial kernel takes <= {MAX_SPECIES} species, <= '
-                f'{MAX_RADIAL} radial functions and <= {MAX_CHUNKS} lane '
-                'chunks')
+                f'{MAX_RADIAL} radial functions and <= {MAX_RUNS} z-runs')
         if min(geo.ncells3) < 3:
             raise ValueError('the pair radial kernel needs >= 3 cells per axis')
         self.geo = geo
         self.n_r = len(rs)
         self.out_w = geo.npres * self.n_r
-        chunk_ints = ctypes.c_int * MAX_CHUNKS
+        run_ints = ctypes.c_int * len(first)
         self.row_off = (ctypes.c_int * (MAX_SPECIES + 1))(*geo.row_off)
-        self.chunk_lo = chunk_ints(*(lo for lo, _, _ in geo.chunks))
-        self.chunk_hi = chunk_ints(*(hi for _, hi, _ in geo.chunks))
-        self.chunk_sp = chunk_ints(*(s for _, _, s in geo.chunks))
+        self.run_first = run_ints(*first.tolist())
+        self.run_len = run_ints(*length.tolist())
+        self.run_sp = run_ints(*species.tolist())
         floats = ctypes.c_float * MAX_RADIAL
         self.eta = floats(*etas)
         self.rs = floats(*rs)
@@ -233,8 +246,8 @@ class _PairSpec:
 
     def scalars(self, stream: int):
         nx, ny, nz = self.geo.ncells3
-        return (nx, ny, nz, self.geo.npres, self.row_off, len(self.geo.chunks),
-                self.chunk_lo, self.chunk_hi, self.chunk_sp, self.n_r,
+        return (nx, ny, nz, self.geo.npres, self.row_off, len(self.run_first),
+                self.run_first, self.run_len, self.run_sp, self.n_r,
                 self.eta, self.rs, self.rc, self.scale, stream)
 
 

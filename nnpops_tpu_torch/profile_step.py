@@ -38,6 +38,16 @@ and measures, in one process:
    CUDA-event time (taken with phases 1-2). Any tree of the port with that
    entry point can be measured this way by running this file in it.
 
+With ``--impl window``, ``--radial-impl pair`` or ``cluster`` runs the
+window path's opt-in radial (the z-pair kernel B.9, or the cluster-pair
+kernel B.8 with its planner, which needs a box of about 1,000 waters or
+more): phase 3 then reports that kernel's forward and backward device
+time and share per step in place of B.2's, and for ``pair`` a phase 7
+profiles the pair path's host side alone on the step's own shapes (the
+z-triple build with its adjoint, the fold of the neighbour side with its
+adjoint, the sum of the backward's five planes): device time and kernels
+per call.
+
 ``--impl cfconv`` measures the SchNet/CFConv path instead: one iteration
 of the 26,010-atom 6-layer CFConv stack of ``chip_smoke.py`` phase 8
 (``models.schnet.periodic_stack_grads``: select with mirror, distance
@@ -60,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -73,7 +84,7 @@ from .models import ani as ani_module
 from .models.ani import ANIModel, init_ani_params
 from .models.combined import C5_SELF_ENERGIES, config5
 from .models.schnet import periodic_stack, periodic_stack_grads
-from .ops import cuda_cfconv
+from .ops import cuda_cfconv, cuda_zpair
 from .utils import make_water_box
 
 MOLECULES = 867
@@ -241,6 +252,53 @@ def _cfconv(dev, card, out_dir):
     return res
 
 
+def _pair_host(step, n):
+    """Device ms and kernels per call of the pair path's host side, each
+    part alone with its adjoint on one step's shapes: the z-triple build
+    (``_build_z3``), the fold of the neighbour side (``_fold_b``) and the
+    sum of the backward's five dz planes."""
+    inputs, kernel = [], []
+    with recording(cuda_zpair, 'pair_inputs', inputs), \
+            recording(cuda_zpair, 'pair_radial', kernel):
+        step()
+    slots, box, ncells3, caps = inputs[0][0]
+    slots = slots.detach()
+    geo = cuda_zpair._geometry(tuple(int(x) for x in ncells3),
+                               tuple(int(x) for x in caps))
+    out_w = geo.npres * len(kernel[0][0][5])
+    gen = torch.Generator(device=slots.device).manual_seed(SEED)
+    z3 = cuda_zpair._build_z3(slots, box, geo.ncells3, geo.cell_caps)
+    g_z3 = torch.rand(z3.shape, device=slots.device, generator=gen)
+    out_b = torch.rand(geo.ncells, 4, out_w, geo.ll, device=slots.device,
+                       generator=gen)
+    g_fold = torch.rand(geo.ncells, geo.c, out_w, device=slots.device,
+                        generator=gen)
+    dz5 = torch.rand(5, geo.ncells, 3, geo.ll, device=slots.device,
+                     generator=gen)
+
+    def build():
+        p = slots.requires_grad_(True)
+        return torch.autograd.grad(
+            cuda_zpair._build_z3(p, box, geo.ncells3, geo.cell_caps), p, g_z3)
+
+    def fold():
+        b = out_b.requires_grad_(True)
+        return torch.autograd.grad(
+            cuda_zpair._fold_b(b, geo.ncells3, geo.cell_caps, out_w), b,
+            g_fold)
+
+    parts = {'z3_build': build, 'fold_b': fold,
+             'dz5_sum': lambda: dz5.sum(0)}
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(3):
+            fn()
+        ms, kernels = _profile(fn, n)
+        out[name] = {'device_kernel_ms': ms, 'kernels': kernels,
+                     'ms_events': _event_ms(fn, n)}
+    return out
+
+
 @contextlib.contextmanager
 def recording(module, name, calls):
     """Wrap ``module.name`` so that every call's ``(args, kwargs)`` is
@@ -265,6 +323,9 @@ def main(argv=None):
                     default='window')
     ap.add_argument('--molecules', type=int, default=MOLECULES,
                     help='waters in the box of the ANI paths')
+    ap.add_argument('--radial-impl', choices=('window', 'pair', 'cluster'),
+                    default='window',
+                    help="the window path's radial (with --impl window)")
     ap.add_argument('--out-dir', type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -276,6 +337,9 @@ def main(argv=None):
     print(card)
     if args.impl == 'cfconv':
         return _cfconv(dev, card, args.out_dir)
+    radial = args.radial_impl
+    if radial != 'window' and args.impl != 'window':
+        raise SystemExit('profile_step: --radial-impl needs --impl window')
 
     water = make_water_box(args.molecules, seed=SEED)
     basis = ANIBasis.ani2x()
@@ -289,10 +353,16 @@ def main(argv=None):
             water.atomic_numbers, basis, nn_dtype='bfloat16',
             nn_impl='fused').with_blocked_layout(
                 water.positions, water.box, margin=1.15, impl=impl,
-                skin=0.25)
+                skin=0.25,
+                radial_impl='cluster' if radial == 'cluster' else 'window')
         if model.aev_impl != impl:
             raise SystemExit(f'profile_step: {impl} fell back to '
                              f'{model.aev_impl}')
+        if radial == 'pair':
+            model = dataclasses.replace(model, window_radial='pair')
+        if model.window_radial != radial:
+            raise SystemExit(f'profile_step: the {radial} radial fell back '
+                             f'to {model.window_radial}')
         box = torch.tensor(water.box, device=dev)
         pos = torch.tensor(water.positions, device=dev)
         cell_list = model.create_cell_list(water.box, skin=0.25)
@@ -311,8 +381,8 @@ def main(argv=None):
 
     for _ in range(3):
         step()
-    res = {'card': card, 'impl': args.impl, 'atoms': len(water.positions),
-           'steps': STEPS}
+    res = {'card': card, 'impl': args.impl, 'radial_impl': radial,
+           'atoms': len(water.positions), 'steps': STEPS}
 
     # 1-2: unprofiled step and selection times.
     res['step_ms_events'] = [_event_ms(step, STEPS) for _ in range(REPEATS)]
@@ -369,8 +439,8 @@ def main(argv=None):
     res['device_kernel_ms_per_step'] = device_ms
     res['device_kernels_per_step'] = len(kernels) / STEPS
     res['busy_share'] = device_ms / step_ms
-    noted = ['angular', 'window_radial'] + (['pme_window'] if combined
-                                            else [])
+    noted = ['angular', f'{radial}_radial'] + (['pme_window'] if combined
+                                               else [])
     for kernel in noted:
         for part in ('fwd', 'bwd'):
             tag = f'{kernel}_{part}_kernel'
@@ -399,6 +469,10 @@ def main(argv=None):
             res['parts'][name].update(
                 device_kernel_ms=part_ms, kernels=part_kernels,
                 share_of_step_device_ms=part_ms / device_ms)
+
+    # 7: the pair path's host side alone, on the step's own shapes.
+    if radial == 'pair':
+        res['pair_host'] = _pair_host(step, STEPS)
 
     # 4: the neighbor gather's adjoint, index_select against advanced
     # indexing.

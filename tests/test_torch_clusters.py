@@ -12,6 +12,9 @@
 * the planner refusing water(150) and a strongly triclinic box, the
   compressed-box overflow contract, keep-'window' in ``with_blocked_layout``
   where the planner refuses;
+* what the kernel's chunk skip relies on, on the selection: whole
+  j-cluster entries per species block, the occupied entries and lanes
+  leading;
 * the port's cluster step against its window step at 1,000 molecules, at
   the JAX suite's gate for that comparison (``test_cluster_aev.py:42-50``:
   energy rtol 1e-5, forces rtol 2e-4 and atol 2e-5 max|F|).
@@ -35,11 +38,17 @@ from nnpops_tpu.neighbors.clusters import \
 from nnpops_tpu.ops.pallas_cluster import make_cluster_radial_kernel
 from nnpops_tpu_torch.config import ANIBasis
 from nnpops_tpu_torch.models.ani import ANIModel
-from nnpops_tpu_torch.neighbors.clusters import plan_clusters, select_clusters
-from nnpops_tpu_torch.ops.cuda_cluster import (cluster_radial,
+from nnpops_tpu_torch.neighbors import clusters as clusters_mod
+from nnpops_tpu_torch.neighbors.clusters import (cluster_radial_features,
+                                                 plan_clusters,
+                                                 select_clusters)
+from nnpops_tpu_torch.ops.cuda_cluster import (ClusterGeometry,
+                                               cluster_radial,
                                                cluster_radial_plain)
+from nnpops_tpu_torch.ops.cuda_window import EMPTY_ROW
 from nnpops_tpu_torch.ops.cuda_window import FAR
 from nnpops_tpu_torch.params import from_jax_params
+from nnpops_tpu_torch.profile_step import recording
 from nnpops_tpu_torch.utils import make_triclinic_water_box, make_water_box
 
 SKIN = 0.25
@@ -194,6 +203,45 @@ def test_cluster_overflow_contract(system):
             plan, kmir=int(counts['cluster_mirror']) - 1)))
     with pytest.raises(RuntimeError, match='cluster_mirror'):
         small.check_overflow(pos, box, cl)
+
+
+def test_cluster_lanes_lead_with_occupied_entries(system):
+    """What the kernel's cuts rely on, on the cluster selection: each
+    species block of ``ClusterGeometry`` is whole j-cluster entries of cl
+    lanes, the i-cluster is the first entry of its own block, and in the
+    gathered lanes the occupied entries lead every species block (the
+    j-lists are compacted) and the occupied lanes lead every entry (a
+    cluster's padding slots come last). So a block's empty entries trail
+    it in whole chunks, which the kernel skips (it skips every 32-lane
+    chunk without an occupied lane)."""
+    _, _, cluster, cl, pos, box = system
+    plan = cluster.blocked_layout.cluster_plan
+    sel = select_clusters(pos, box, cluster.species_array, plan,
+                          cluster.basis.radial_cutoff, skin=SKIN)
+    calls = []
+    with recording(clusters_mod, 'cluster_radial_plain', calls):
+        cluster_radial_features(pos, sel, plan, cluster.basis,
+                                torch.arange(len(pos)), plain=True)
+    assert len(calls) == len(plan.present)
+    for i, (args, _) in enumerate(calls):
+        jx, _, _, centers = args[:4]
+        ncl_lanes, lane_caps, self_block = args[7:10]
+        geo = ClusterGeometry(plan.cl, lane_caps, self_block)
+        assert ncl_lanes == plan.cl and self_block == i
+        assert geo.lanes == jx.shape[1] == plan.cl * plan.ktot[i]
+        assert all(lo % plan.cl == 0 and hi % plan.cl == 0
+                   for lo, hi in geo.bounds)
+        assert geo.self_off == geo.bounds[i][0]
+        occ = (jx < EMPTY_ROW).numpy()
+        own = occ[:, geo.self_off:geo.self_off + plan.cl]
+        np.testing.assert_array_equal(
+            own, (centers[:, :, 0] < EMPTY_ROW).numpy())
+        entries = occ.reshape(len(occ), -1, plan.cl)
+        assert not (entries[:, :, 1:] & ~entries[:, :, :-1]).any()
+        for lo, hi in geo.bounds:
+            used = entries[:, lo // plan.cl:hi // plan.cl].any(2)
+            assert (~used).any()
+            assert not (used[:, 1:] & ~used[:, :-1]).any()
 
 
 def test_plan_refuses_small_and_triclinic_boxes():

@@ -1116,6 +1116,212 @@ def test_pair_radial_kernel_matches_plain(dev):
         assert torch.equal(a, b)
 
 
+def synthetic_pair_slots(caps, grid, w, seed,
+                         modes=('edge', 'empty-centers', 'full',
+                                'no-species')):
+    """Slot positions ``[ncells * c, 3]`` and the box of a grid of cubic
+    cells of width ``w``, in the kernels' layout (species-sub-blocked slots
+    per cell): each slot is occupied with probability 0.65 (anywhere in its
+    species block, not only as a prefix) at a random place of its cell,
+    empty slots at FAR. The first cells follow ``modes``: 'edge' (slot 0 at
+    (1, 1, 1), two slots of the same cell and two of the (1, 0, 0) column's
+    cell at exactly rc^2 and just inside of it), no atom at all, every slot
+    occupied, no atom of the last species. With ``w`` = rc the half-offset
+    columns hold runs beyond the cutoff of a row and runs that straddle
+    it."""
+    rng = np.random.RandomState(seed)
+    nx, ny, nz = grid
+    caps = tuple(caps)
+    c = sum(caps)
+    ncells = nx * ny * nz
+    cell = np.arange(ncells)
+    corner = np.stack([cell // (ny * nz), (cell // nz) % ny, cell % nz],
+                      1) * w
+    pos = np.full((ncells, c, 3), cuda_window.FAR, np.float64)
+    for k in range(ncells):
+        mode = modes[k] if k < len(modes) else 'random'
+        occ = rng.rand(c) < 0.65
+        if mode in ('full', 'edge'):
+            occ[:] = True
+        if mode == 'empty-centers':
+            occ[:] = False
+        if mode == 'no-species':
+            occ[c - caps[-1]:] = False
+        pos[k, occ] = corner[k] + rng.rand(int(occ.sum()), 3) * w
+    rc2 = w * w
+    pos[0, 0] = (1.0, 1.0, 1.0)
+    for j, (dx, dy) in enumerate(exact_offsets(rc2)):
+        pos[0, 1 + j] = (1.0 + dx, 1.0 + dy, 1.0)
+        pos[ny * nz, j] = (1.0 + dx, 1.0 + dy, 1.0)
+    box = np.diag([nx * w, ny * w, nz * w])
+    return (torch.tensor(pos.reshape(-1, 3), dtype=torch.float32),
+            torch.tensor(box, dtype=torch.float32))
+
+
+PAIR_EDGE_CASES = {
+    # (basis, cell_caps); 'wide' cuts a 33-slot block into runs of 32 and
+    # 1 lanes and has 1-lane runs of the second species.
+    'ani2x': (ANIBasis.ani2x(), (7, 4)),
+    'small': (small_basis(True), (5, 3, 4)),
+    'wide': (ANIBasis.ani2x(), (33, 1)),
+}
+
+
+@pytest.mark.parametrize('grid', [(3, 3, 3), (6, 5, 5)],
+                         ids=['27-cells', '150-cells'])
+@pytest.mark.parametrize('torchani', [True, False],
+                         ids=['torchani', 'publication'])
+@pytest.mark.parametrize('case', sorted(PAIR_EDGE_CASES))
+def test_pair_radial_kernel_edge_cells(dev, case, torchani, grid):
+    """The z-pair kernel against its plain version on synthetic grids at its
+    edges (a cell with no real center, a full cell, lanes at exactly rc^2
+    and just inside in the own column and a half-offset column, runs beyond
+    and straddling the cutoff, empty slots anywhere in a run, a species
+    with no atom in a cell, runs of 32 and 1 lanes, the smallest grid and
+    one of more cells than SMs): forward and gradients at the gates, empty
+    rows 0, and two launches of each direction bitwise equal."""
+    basis, caps = PAIR_EDGE_CASES[case]
+    basis = dataclasses.replace(basis, torchani=torchani)
+    rc = basis.radial_cutoff
+    slots, box = synthetic_pair_slots(caps, grid, rc, seed=sum(grid))
+    ins = [t.to(dev) for t in cuda_zpair.pair_inputs(slots, box, grid, caps)]
+    real = ins[0][:, :, 0] < cuda_window.EMPTY_ROW
+    assert real.any() and not real[1].any() and real[2].all()
+    args = (rc, basis.radial_eta, basis.radial_rs, grid, caps, torchani)
+    ins_k = [t.clone().requires_grad_(True) for t in ins]
+    ins_p = [t.clone().requires_grad_(True) for t in ins]
+    out_k = cuda_zpair.pair_radial(*ins_k, *args)
+    out_p = cuda_zpair.pair_radial_plain(*ins_p, *args)
+    for a, b in zip(out_k, out_p):
+        assert normwise_close(a, b, 1e-5)
+    assert torch.count_nonzero(out_k[0][~real]) == 0
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g = [torch.rand(o.shape, device=dev, generator=gen) for o in out_p]
+    g_k = torch.autograd.grad(out_k, ins_k, g)
+    g_p = torch.autograd.grad(out_p, ins_p, g)
+    for a, b in zip(g_k, g_p):
+        assert bool(torch.isfinite(a).all())
+        assert normwise_close(a, b, 1e-4)
+    spec = cuda_zpair._spec(grid, caps, float(rc), tuple(basis.radial_eta),
+                            tuple(basis.radial_rs), bool(torchani))
+    first = cuda_zpair.pair_radial_fwd_cuda(*ins, spec)
+    again = cuda_zpair.pair_radial_fwd_cuda(*ins, spec)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    first = cuda_zpair.pair_radial_bwd_cuda(*ins, *g, spec)
+    again = cuda_zpair.pair_radial_bwd_cuda(*ins, *g, spec)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def synthetic_clusters(cl, lane_caps, self_block, ncl, rc, seed,
+                       modes=('edge', 'empty-centers', 'full',
+                              'empty-block')):
+    """Lane planes ``[ncl, lanes]`` and centers ``[ncl, cl, 3]`` in the
+    kernel's layout: i-cluster i's atoms lie in a cube of width rc, and it
+    is the first entry of block ``self_block``; each species block holds
+    ``lane_caps[s]`` entries of cl lanes, of which a random number lead
+    with j-clusters (cubes of width rc placed up to 2 rc away, so some lie
+    beyond the cutoff of a row and some straddle it) and the rest are
+    empty, as the selection compacts them. Lanes and centers are FAR with
+    probability 0.15, anywhere in an entry. The first clusters follow
+    ``modes``: 'edge' (row 0 at (1, 1, 1), two lanes of a j-cluster at
+    exactly rc^2 and just inside of it), no real center, nothing FAR, and
+    a block (the last) with no atom."""
+    rng = np.random.RandomState(seed)
+    lanes = cl * sum(lane_caps)
+    offs = np.cumsum((0,) + tuple(lane_caps)) * cl
+    planes = np.full((ncl, lanes, 3), cuda_window.FAR, np.float64)
+    centers = np.full((ncl, cl, 3), cuda_window.FAR, np.float64)
+    for i in range(ncl):
+        mode = modes[i] if i < len(modes) else 'random'
+        holes = mode not in ('full', 'edge')
+
+        def far(n):
+            return (rng.rand(n) < 0.15) & holes
+
+        home = rng.uniform(-rc, rc, 3)
+        ctr = home + rng.rand(cl, 3) * rc
+        ctr[far(cl)] = cuda_window.FAR
+        if mode == 'empty-centers':
+            ctr[:] = cuda_window.FAR
+        centers[i] = ctr
+        for s, caps in enumerate(lane_caps):
+            used = caps if mode == 'full' else rng.randint(1, caps + 1)
+            if mode == 'empty-block' and s == len(lane_caps) - 1:
+                used = 0
+            for e in range(used):
+                lo = offs[s] + e * cl
+                if s == self_block and e == 0:
+                    planes[i, lo:lo + cl] = ctr
+                    continue
+                atoms = home + rng.uniform(-2 * rc, 2 * rc, 3) + \
+                    rng.rand(cl, 3) * rc
+                atoms[far(cl)] = cuda_window.FAR
+                planes[i, lo:lo + cl] = atoms
+    own = offs[self_block]
+    other = offs[1] if self_block == 0 else 0
+    centers[0, 0] = planes[0, own] = (1.0, 1.0, 1.0)
+    for k, (dx, dy) in enumerate(exact_offsets(rc * rc)):
+        planes[0, other + k] = (1.0 + dx, 1.0 + dy, 1.0)
+    planes, centers = planes.astype(np.float32), centers.astype(np.float32)
+    return ([torch.tensor(np.ascontiguousarray(planes[..., k]))
+             for k in range(3)], torch.tensor(centers))
+
+
+CLUSTER_EDGE_CASES = {
+    # (basis, cl, lane_caps in entries, self_block): a block of more
+    # entries than a live-run table holds; the i-cluster in the second
+    # block; 1-lane clusters of three species.
+    'big-block': (ANIBasis.ani2x(), 8, (40, 3), 0),
+    'self-second': (ANIBasis.ani2x(), 8, (5, 9), 1),
+    'one-lane': (small_basis(True), 1, (70, 5, 4), 2),
+}
+
+
+@pytest.mark.parametrize('torchani', [True, False],
+                         ids=['torchani', 'publication'])
+@pytest.mark.parametrize('case', sorted(CLUSTER_EDGE_CASES))
+def test_cluster_radial_kernel_edge_cases(dev, case, torchani):
+    """The cluster-pair kernel against its plain version on synthetic
+    clusters at its edges (a cluster with no real center, a full cluster,
+    lanes at exactly rc^2 and just inside, j-entries beyond and straddling
+    the cutoff, empty lanes anywhere in an entry, a species block with no
+    atom, blocks of more than 32 entries, 1-lane clusters): forward and
+    gradients at the gates, empty rows 0, and two launches of each
+    direction bitwise equal."""
+    basis, cl, lane_caps, self_block = CLUSTER_EDGE_CASES[case]
+    basis = dataclasses.replace(basis, torchani=torchani)
+    rc = basis.radial_cutoff
+    (jx, jy, jz), centers = synthetic_clusters(cl, lane_caps, self_block, 24,
+                                               rc, seed=len(case))
+    planes = [t.to(dev) for t in (jx, jy, jz, centers)]
+    real = planes[3][:, :, 0] < cuda_window.EMPTY_ROW
+    assert real.any() and not real[1].any()
+    args = (rc, basis.radial_eta, basis.radial_rs, cl, lane_caps, self_block,
+            torchani)
+    ins_k = [t.clone().requires_grad_(True) for t in planes]
+    ins_p = [t.clone().requires_grad_(True) for t in planes]
+    out_k = cuda_cluster.cluster_radial(*ins_k, *args)
+    out_p = cuda_cluster.cluster_radial_plain(*ins_p, *args)
+    assert normwise_close(out_k, out_p, 1e-5)
+    assert torch.count_nonzero(out_k[~real]) == 0
+    g = torch.rand(out_p.shape, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(3))
+    g_k = torch.autograd.grad(out_k, ins_k, g)
+    g_p = torch.autograd.grad(out_p, ins_p, g)
+    for a, b in zip(g_k, g_p):
+        assert bool(torch.isfinite(a).all())
+        assert normwise_close(a, b, 1e-4)
+    spec = cuda_cluster._spec(cl, lane_caps, self_block, float(rc),
+                              tuple(basis.radial_eta),
+                              tuple(basis.radial_rs), bool(torchani))
+    first = cuda_cluster.cluster_radial_fwd_cuda(*planes, spec)
+    assert torch.equal(first,
+                       cuda_cluster.cluster_radial_fwd_cuda(*planes, spec))
+    first = cuda_cluster.cluster_radial_bwd_cuda(*planes, g, spec)
+    again = cuda_cluster.cluster_radial_bwd_cuda(*planes, g, spec)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def cluster_setup(dev, molecules=1000):
     water = make_water_box(molecules, seed=0)
     model = ANIModel.from_atomic_numbers(

@@ -7,7 +7,9 @@ against the JAX package's on water(150) (a 3x3x3 radial grid):
 * ``pair_radial_aev`` (z-triples, shifts, kernel, fold) against the JAX
   function: the radial AEV and its gradient in the slots and the box;
 * the pair force step against the JAX pair step, and against the port's
-  own window step.
+  own window step;
+* the kernel's run table against ``PairGeometry``, and the occupied lanes
+  leading every run on the selection.
 
 Tolerances: the kernel against JAX at f32 noise (rtol 1e-5, atol 1e-6 of
 the output's scale; gradients rtol 1e-4, atol 1e-5 of their scale, the
@@ -33,9 +35,10 @@ from nnpops_tpu_torch.config import ANIBasis
 from nnpops_tpu_torch.models.ani import ANIModel
 from nnpops_tpu_torch.neighbors.window import _radial_slots
 from nnpops_tpu_torch.ops.cuda_window import EMPTY_ROW
-from nnpops_tpu_torch.ops.cuda_zpair import (_column_cells, pair_inputs,
-                                             pair_radial, pair_radial_aev,
-                                             pair_radial_plain)
+from nnpops_tpu_torch.ops.cuda_zpair import (PairGeometry, _column_cells,
+                                             pair_inputs, pair_radial,
+                                             pair_radial_aev,
+                                             pair_radial_plain, pair_runs)
 from nnpops_tpu_torch.params import from_jax_params
 from nnpops_tpu_torch.utils import make_water_box
 
@@ -212,3 +215,41 @@ def test_window_radial_needs_shift_planes(system):
     sel = pair.select(pos, box, cl)
     with pytest.raises(ValueError, match='need_shift_planes'):
         window.energy_and_forces_from_selection(tp, pos, box, cl, sel)
+
+
+def test_pair_runs_match_geometry(system, slots):
+    """The kernel's run table (``cuda_zpair.pair_runs``) against
+    ``PairGeometry``: the z-runs tile the z-triple lanes in order,
+    species-major, at most 32 lanes each; run (s, dz) holds species s's
+    slots of z-cell dz in rank order inside s's lane block, and every row's
+    self lane lies in a run of its species' middle z-cell. On water(150)'s
+    pair selection the occupied lanes lead every run (the slots fill by
+    rank), so the kernel, which cuts each run at its last occupied lane,
+    tests no empty lane."""
+    s, grid, caps = slots
+    geo = PairGeometry(grid, caps)
+    first, length, species = pair_runs(geo)
+    assert first[0] == 0 and (first[1:] == first[:-1] + length[:-1]).all()
+    assert first[-1] + length[-1] == geo.ll
+    assert (length >= 1).all() and (length <= 32).all()
+    assert (np.diff(species) >= 0).all()
+    for sp, ((lo, hi), cs) in enumerate(zip(geo.lane_bounds, caps)):
+        mine = species == sp
+        assert first[mine].min() == lo and (first + length)[mine].max() == hi
+        assert length[mine].sum() == 3 * cs
+        for dz in range(3):
+            z0 = lo + dz * cs
+            runs = mine & (first >= z0) & (first < z0 + cs)
+            assert first[runs].min() == z0 and length[runs].sum() == cs
+        rows = np.arange(geo.row_off[sp], geo.row_off[sp + 1])
+        ends = first + length
+        for lane in geo.self_lane[rows]:
+            k = np.flatnonzero((first <= lane) & (lane < ends))
+            assert len(k) == 1 and species[k[0]] == sp
+            assert lo + cs <= first[k[0]] and ends[k[0]] <= lo + 2 * cs
+    _, z3, _ = pair_inputs(s, system[7], grid, caps)
+    occ = (z3[:, 0, :] < EMPTY_ROW).numpy()
+    assert (~occ).any() and occ.any()
+    for f, n in zip(first, length):
+        run = occ[:, f:f + n]
+        assert not (run[:, 1:] & ~run[:, :-1]).any()
