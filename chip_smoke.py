@@ -1537,8 +1537,12 @@ def mask_entries(mask_args, pack_args):
                                                            a_caps),
                  m_atom.numel() + 4 * (lanes.numel() + counts.numel()),
                  LANE_PACK_OPS * m_atom.numel(), F32_OPS_PER_S)
+    # Empty slot rows sit at FAR and hold ones against the FAR lanes.
+    occupied = centers[:, :, 0] < cuda_window.FAR
     print(f'window_mask cells {ncells} rows {c} lanes {kk} (valid '
-          f'{int(m_k.sum())}): {mask["ms"]:.4f} ms (eager '
+          f'{int(m_k.sum())}, of them {int(m_k[occupied].sum())} in the '
+          f'{int(occupied.sum())} occupied rows of {ncells * c}): '
+          f'{mask["ms"]:.4f} ms (eager '
           f'{mask["event_ms"]:.4f}, plain {mask["plain_ms"]:.4f}, bound '
           f'{mask["bound_ms"]:.5f} {mask["bound_by"]}); left_pack_lanes '
           f'rows {m_atom.shape[0]} widths {tuple(widths)} caps '

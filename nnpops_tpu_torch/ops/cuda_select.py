@@ -44,6 +44,10 @@ from .. import _kernels
 
 MAX_BLOCKS = 8      # species blocks the kernels take (csrc/left_pack.cu,
 #                     csrc/window_mask.cu)
+# Mask lanes a row the lane left-pack takes: two tile buffers of at least
+# one row each (16-byte-aligned range, width + 45 bytes rounded down to
+# 16) in the 232,448 bytes of shared memory a block may use.
+MAX_LANE_PACK_WIDTH = 116194
 SELF_STENCIL_INDEX = 13     # stencil entry of the cell itself
 
 
@@ -223,6 +227,9 @@ def left_pack_lanes_cuda(mask: torch.Tensor, widths: Sequence[int],
     widths, caps = _check_widths(mask, widths, caps, torch.bool, 'mask')
     if len(widths) > MAX_BLOCKS:
         raise ValueError(f'lane left-pack takes at most {MAX_BLOCKS} blocks')
+    if mask.shape[1] > MAX_LANE_PACK_WIDTH:
+        raise ValueError(f'lane left-pack takes rows of at most '
+                         f'{MAX_LANE_PACK_WIDTH} lanes, got {mask.shape[1]}')
     _kernels.require_cuda(mask)
     n = mask.shape[0]
     lanes = torch.empty(n, sum(caps), dtype=torch.int32, device=mask.device)

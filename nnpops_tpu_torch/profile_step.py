@@ -48,6 +48,14 @@ z-triple build with its adjoint, the fold of the neighbour side with its
 adjoint, the sum of the backward's five planes): device time and kernels
 per call.
 
+With ``--impl window`` a phase 8 compares the selection's two
+compactions at this run's shapes: ``select_window(compact_impl='kernel')``
+(the left-pack of slot keys, B.1) and ``'mask'`` (the slot-space mask,
+B.7a, and the lane left-pack, B.7b), each with the arguments
+``ANIModel.select`` passes. For each, the CUDA-event ms of 3 runs (taken
+in turns), and under ``torch.profiler`` the device kernel ms and kernels
+a selection, with the device ms of B.1, B.7a and B.7b.
+
 ``--impl cfconv`` measures the SchNet/CFConv path instead: one iteration
 of the 26,010-atom 6-layer CFConv stack of ``chip_smoke.py`` phase 8
 (``models.schnet.periodic_stack_grads``: select with mirror, distance
@@ -71,6 +79,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import pathlib
 import statistics
@@ -84,6 +93,7 @@ from .models import ani as ani_module
 from .models.ani import ANIModel, init_ani_params
 from .models.combined import C5_SELF_ENERGIES, config5
 from .models.schnet import periodic_stack, periodic_stack_grads
+from .neighbors.window import select_window
 from .ops import cuda_cfconv, cuda_zpair
 from .utils import make_water_box
 
@@ -299,6 +309,52 @@ def _pair_host(step, n):
     return out
 
 
+# Kernel names of the compactions, as the profiler reports them.
+COMPACTION_KERNELS = {'left_pack': 'left_pack_kernel',
+                      'window_mask': 'window_mask_kernel',
+                      'left_pack_lanes': 'left_pack_lanes_kernel'}
+
+
+def _compactions(model, pos, box, cell_list, n):
+    """Phase 8: the window selection with compact_impl 'kernel' and
+    'mask' (see the module doc); ``n`` profiled selections each."""
+    from torch.profiler import ProfilerActivity, profile
+    g = model.grouping
+    layout = model.blocked_layout
+
+    def select(impl):
+        return select_window(
+            cell_list, pos, box, model.species_array, layout,
+            model.basis.radial_cutoff, model.basis.angular_cutoff,
+            grouping_order=g.order,
+            present_counts=tuple(g.counts[s] for s in layout.present),
+            need_shift_planes=model.window_radial == 'window',
+            cluster_plan=(layout.cluster_plan
+                          if model.window_radial == 'cluster' else None),
+            compact_impl=impl)
+
+    impls = ('kernel', 'mask')
+    for impl in impls:
+        select(impl)
+    out = {impl: {'ms_events': []} for impl in impls}
+    for rep in range(REPEATS):
+        for impl in impls if rep % 2 == 0 else impls[::-1]:
+            out[impl]['ms_events'].append(
+                _event_ms(functools.partial(select, impl), 1))
+    for impl in impls:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _host_ms(functools.partial(select, impl), n)
+        kernels = _kernel_events(prof)
+        out[impl]['device_kernel_ms'] = sum(us for _, us in kernels) / 1e3 / n
+        out[impl]['device_kernels'] = len(kernels) / n
+        for key, tag in COMPACTION_KERNELS.items():
+            out[impl][f'{key}_ms'] = sum(
+                us for name, us in kernels if tag in name) / 1e3 / n
+    return out
+
+
 @contextlib.contextmanager
 def recording(module, name, calls):
     """Wrap ``module.name`` so that every call's ``(args, kwargs)`` is
@@ -473,6 +529,10 @@ def main(argv=None):
     # 7: the pair path's host side alone, on the step's own shapes.
     if radial == 'pair':
         res['pair_host'] = _pair_host(step, STEPS)
+
+    # 8: the selection's two compactions.
+    if args.impl == 'window':
+        res['compaction'] = _compactions(model, pos, box, cell_list, 3)
 
     # 4: the neighbor gather's adjoint, index_select against advanced
     # indexing.

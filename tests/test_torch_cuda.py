@@ -1074,6 +1074,88 @@ def test_left_pack_lanes_kernel_matches_plain(dev):
     assert bool((got[1] > torch.tensor(caps, device=dev)).any())
 
 
+# (cell caps, cells) of the mask kernel's edge cases: one, two and three
+# species with odd cells of bytes (27 c^2), fewer cells than SMs and the
+# 26k angular grid's 17^3; (12, 11) are the 26k box's caps.
+MASK_EDGE_CASES = [((5,), 1), ((5,), 7), ((7, 4), 1), ((7, 4), 7),
+                   ((5, 3, 3), 1), ((5, 3, 3), 7), ((5, 3, 3), 4913),
+                   ((12, 11), 7), ((12, 11), 4913)]
+# (widths, caps) of the lane left-pack's: widths 1 to 486, caps 0 and
+# equal to the width among them; (324, 297) / (32, 16) are the 26k box's.
+LANE_PACK_EDGE_CASES = [((1, 31, 33), (1, 5, 33)),
+                        ((324, 297), (32, 16)),
+                        ((486, 297, 33, 1), (32, 16, 0, 1))]
+
+
+def lane_pack_edge_mask(widths, caps, seed):
+    """``[N, W]`` bool rows: four patterns in which every species block
+    holds 0, cap, cap + 1 (at most the width) and all of its lanes valid
+    at random places, each on 16 consecutive rows (with an odd W their
+    starts take every byte offset mod 16), then 200 random rows of
+    densities up to 0.6."""
+    rng = np.random.RandomState(seed)
+    offs = np.cumsum((0,) + tuple(widths))
+    rows = []
+    for pattern in range(4):
+        row = np.zeros(offs[-1], bool)
+        for s, (w, cap) in enumerate(zip(widths, caps)):
+            n = min((0, cap, cap + 1, w)[pattern], w)
+            row[offs[s] + rng.choice(w, n, replace=False)] = True
+        rows += [row] * 16
+    dens = rng.uniform(0.0, 0.6, (200, 1)) ** 2
+    return np.concatenate([np.stack(rows), rng.rand(200, offs[-1]) < dens])
+
+
+@pytest.mark.parametrize('caps, ncells', MASK_EDGE_CASES)
+def test_mask_kernels_edge_cases(dev, caps, ncells):
+    """Both 'mask' kernels against their plain versions, bitwise, at their
+    edges. The mask kernel on synthetic windows: lanes at exactly d2 = w2
+    and one ulp inside, rows whose center is FAR (they hold ones against
+    the FAR lanes, as the plain version's do), odd byte counts a cell so
+    that cells start at every offset mod 16. The lane left-pack on rows
+    with 0, cap, cap + 1 and every lane valid, at every row start mod 16
+    and every base address mod 16 of the mask. Two launches of each are
+    bitwise equal and each wrapper call counts one launch."""
+    w = 3.75                                   # ANI-2x's angular window
+    (cx, cy, cz), centers = synthetic_windows(
+        caps, w, ncells, w * w, seed=ncells,
+        modes=('edge', 'empty-centers', 'full'))
+    ins = [t.to(dev) for t in (cx, cy, cz, centers)]
+    before = _kernels.LAUNCHES['window_mask']
+    got = cuda_select.window_mask(*ins, w * w, caps)
+    assert _kernels.LAUNCHES['window_mask'] == before + 1
+    want = cuda_select.window_mask_plain(*ins, w * w, caps)
+    assert torch.equal(got, want)
+    assert torch.equal(got, cuda_select.window_mask(*ins, w * w, caps))
+    far = ins[3][:, :, 0] >= cuda_window.FAR
+    assert bool(far.any()) and bool(got[far].any())
+    edge = got[0, 0, 14 * caps[0]:14 * caps[0] + 2].tolist()
+    assert edge == [False, True]               # d2 = w2, one ulp inside
+
+    for widths, a_caps in LANE_PACK_EDGE_CASES:
+        rows = lane_pack_edge_mask(widths, a_caps, seed=sum(widths))
+        n, width = rows.shape
+        big = torch.tensor(rows, device=dev).reshape(-1)
+        big = torch.cat([big, big[:16]])
+        counts_seen = set()
+        for base in range(16):
+            mask = big[base:base + n * width].view(n, width)
+            before = _kernels.LAUNCHES['left_pack_lanes']
+            got = cuda_select.left_pack_lanes(mask, widths, a_caps)
+            assert _kernels.LAUNCHES['left_pack_lanes'] == before + 1
+            want = cuda_select.left_pack_lanes_plain(mask, widths, a_caps)
+            again = cuda_select.left_pack_lanes(mask, widths, a_caps)
+            for a, b, c in zip(got, want, again):
+                assert torch.equal(a, b) and torch.equal(a, c)
+            counts_seen.update(got[1][:64:16].flatten().tolist())
+        for w_s, cap in zip(widths, a_caps):
+            assert {0, min(cap + 1, w_s), w_s} <= counts_seen
+    wide = cuda_select.MAX_LANE_PACK_WIDTH + 1
+    with pytest.raises(ValueError, match='at most'):
+        cuda_select.left_pack_lanes(
+            torch.zeros(1, wide, dtype=torch.bool, device=dev), (wide,), (1,))
+
+
 def pair_setup(dev, molecules=150):
     model, cl, pos, box, _ = window_setup(dev, molecules)
     pair = dataclasses.replace(model, window_radial='pair')

@@ -28,6 +28,7 @@ from nnpops_tpu_torch.neighbors.window import select_window
 from nnpops_tpu_torch.ops.cuda_select import (left_pack_lanes,
                                               left_pack_lanes_plain,
                                               window_mask, window_mask_plain)
+from nnpops_tpu_torch.ops.cuda_window import FAR
 from nnpops_tpu_torch.profile_step import recording
 from nnpops_tpu_torch.utils import make_water_box
 
@@ -156,6 +157,10 @@ def test_window_mask_plain_matches_jax(port_selections):
     assert got.dtype == torch.bool
     equal('mask', got, np.asarray(want) != 0)
     assert 0 < int(got.sum()) < got.numel()
+    # Empty slot rows sit at FAR, as the unshifted FAR lanes do: they hold
+    # ones (d2 = 0) in both, though no atom reads them.
+    far = centers[:, :, 0] >= FAR
+    assert bool(far.any()) and bool(got[far].any())
     assert torch.equal(window_mask(cx, cy, cz, centers, w2, caps), got)
 
 
@@ -182,7 +187,8 @@ def random_mask(rows, widths, density, seed):
 @pytest.mark.parametrize('widths, caps, density', [
     ((351, 216), (40, 24), 0.08),          # water(150)'s angular grid
     ((100, 37, 64), (9, 5, 64), 0.2),      # three blocks, one cap = width
-], ids=['water150', 'three-blocks'])
+    ((324, 297), (32, 16), 0.08),          # water(8670)'s angular grid
+], ids=['water150', 'three-blocks', 'water26k'])
 def test_left_pack_lanes_plain_matches_jax(widths, caps, density):
     mask = random_mask(203, widths, density, seed=sum(widths))
     lanes, counts = left_pack_lanes_plain(torch.tensor(mask), widths, caps)
