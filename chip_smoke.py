@@ -77,10 +77,12 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    plain version at the shapes its path gives it, timed: the z-pair
    forward and backward at 2,601 and 26,010 atoms, the cluster-pair
    forward and backward per i-species at 26,010, the mask and lane
-   left-pack on the 26,010-atom angular grid; (b) ``window_radial='pair'``
-   at 2,601 atoms, 2 selection blocks x 8 steps as in 5 (launch counts
-   read just after), and on a frozen 26,010-atom selection, each step
-   against its plain step and against the 'window' step; (c)
+   left-pack on the 26,010-atom angular grid, and the left-pack of a
+   26,010-atom 'kernel' selection (bitwise, two launches equal); (b)
+   ``window_radial='pair'`` at 2,601 atoms, 2 selection blocks x 8 steps
+   as in 5 (launch counts read just after), and on a frozen 26,010-atom
+   selection, each step against its plain step and against the 'window'
+   step; (c)
    ``with_blocked_layout(radial_impl='cluster')`` at 26,010 atoms (the
    planner's time printed): one selection and 4 frozen steps with the
    counts set to 0 just before, no overflow, one step against its plain
@@ -595,18 +597,26 @@ def nn_entries(ens, feat, counts, label, calls=20):
     return ents
 
 
-def left_pack_entry(keys, widths, caps):
+def left_pack_entry(keys, widths, caps, label='left_pack'):
+    """The left-pack's entry on one recorded call: the kernel must equal
+    its plain version exactly, and two launches each other."""
     packed, counts = cuda_select.left_pack_cuda(keys, widths, caps)
     p_packed, p_counts = cuda_select.left_pack_plain(keys, widths, caps)
+    again = cuda_select.left_pack_cuda(keys, widths, caps)
     if not (torch.equal(packed, p_packed) and torch.equal(counts, p_counts)):
-        raise AssertionError('left_pack: kernel and plain version differ')
+        raise AssertionError(f'{label}: kernel and plain version differ')
+    if not (torch.equal(packed, again[0]) and torch.equal(counts, again[1])):
+        raise AssertionError(f'{label}: two launches differ')
     e = entry('left_pack', 'left_pack', 0.0,
               lambda: cuda_select.left_pack_cuda(keys, widths, caps),
               lambda: cuda_select.left_pack_plain(keys, widths, caps),
               4 * (keys.numel() + packed.numel() + counts.numel()),
               3 * keys.numel(), F32_OPS_PER_S)
-    print(f'left_pack keys {tuple(keys.shape)} widths {tuple(widths)} caps '
-          f'{tuple(caps)}: {e["ms"]:.4f} ms, plain {e["plain_ms"]:.4f} ms')
+    print(f'{label} keys {tuple(keys.shape)} widths {tuple(widths)} caps '
+          f'{tuple(caps)} (valid {int((keys >= 0).sum())}): {e["ms"]:.5f} ms '
+          f'(eager {e["event_ms"]:.5f}, plain {e["plain_ms"]:.4f}), bound '
+          f'{e["bound_ms"]:.5f} ms ({e["bound_by"]}); two launches bitwise '
+          'equal')
     return e
 
 
@@ -1708,6 +1718,13 @@ def opt_in_phase(basis, params):
               grouping_order=g.order,
               present_counts=tuple(g.counts[s] for s in layout.present),
               need_shift_planes=True)
+    packs = []
+    with recording(window_mod, 'left_pack', packs):
+        window_mod.select_window(cell_list, pos, box, compact_impl='kernel',
+                                 **kw)
+    (args, _), = packs
+    left_pack_entry(*args, label='left_pack 26k')
+    del packs, args
     masks, packs = [], []
     with recording(window_mod, 'window_mask', masks), \
             recording(window_mod, 'left_pack_lanes', packs):

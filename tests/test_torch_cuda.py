@@ -449,6 +449,78 @@ def test_left_pack_kernel_matches_plain(dev):
     assert bool((counts > torch.tensor(caps, device=dev)).any())
 
 
+# (widths, caps, rows) of the left-pack's edge cases: the 2.6k and 26k
+# boxes' angular grids at their row counts, one row, one lane, caps equal
+# to the width and of 1, widths that are no multiple of 4 or 32, a block
+# of 1,500 lanes (wider than one window of the kernel's lines), three and
+# eight (MAX_BLOCKS) blocks, and an empty block.
+LEFT_PACK_EDGE_CASES = {
+    'water2.6k': ((486, 297), (32, 16), 2601),
+    'water26k': ((324, 297), (32, 16), 26010),
+    'one-row': ((486, 297), (32, 16), 1),
+    'one-lane': ((1,), (1,), 40),
+    'cap-is-width': ((33, 7), (33, 1), 300),
+    'wide-block': ((1500, 37), (40, 37), 300),
+    'three-blocks': ((255, 257, 1033), (32, 1, 257), 300),
+    'eight-blocks': ((5, 1, 33, 100, 2, 64, 31, 3),
+                     (5, 1, 1, 9, 2, 64, 3, 3), 300),
+    'empty-block': ((0, 65), (3, 2), 100),
+}
+
+
+def left_pack_edge_keys(widths, caps, rows, seed):
+    """``[rows, W]`` int32 keys: six patterns in which every species block
+    holds cap + 1, 0, cap - 1, cap, all and half of its lanes valid (each
+    at most the width) at random places, each on up to 32 consecutive rows
+    (with an odd W their starts take every offset mod 128 bytes), then
+    random rows of densities up to 0.36 up to ``rows``."""
+    rng = np.random.RandomState(seed)
+    offs = np.cumsum((0,) + tuple(widths))
+    rep = max(1, min(32, rows // 6))
+    pattern_rows = []
+    for pattern in range(6):
+        row = np.full(offs[-1], -1, np.int64)
+        for s, (w, cap) in enumerate(zip(widths, caps)):
+            n = min((cap + 1, 0, max(cap - 1, 0), cap, w, w // 2)[pattern], w)
+            row[offs[s] + rng.choice(w, n, replace=False)] = rng.randint(
+                0, 10 ** 6, n)
+        pattern_rows += [row] * rep
+    dens = rng.uniform(0.0, 0.6, (max(rows - len(pattern_rows), 0), 1)) ** 2
+    rand = np.where(rng.rand(len(dens), offs[-1]) < dens,
+                    rng.randint(0, 10 ** 6, (len(dens), offs[-1])), -1)
+    return np.concatenate([np.stack(pattern_rows), rand])[:rows].astype(
+        np.int32)
+
+
+@pytest.mark.parametrize('case', sorted(LEFT_PACK_EDGE_CASES))
+def test_left_pack_kernel_edge_cases(dev, case):
+    """The left-pack kernel against its plain version, bitwise, at its
+    edges: rows with no, cap - 1, cap, cap + 1 and every key valid, at
+    every base address mod 128 bytes of the keys (a view into a larger
+    buffer) and, with an odd W, every row start mod 128 bytes. Two
+    launches are bitwise equal and each wrapper call counts one launch."""
+    widths, caps, rows = LEFT_PACK_EDGE_CASES[case]
+    keys = left_pack_edge_keys(widths, caps, rows, seed=sum(widths) + rows)
+    n, width = keys.shape
+    flat = torch.tensor(keys, device=dev).reshape(-1)
+    flat = torch.cat([flat, flat[:32]])
+    counts_seen = set()
+    for shift in range(0, 32, 1 if n * width < 10 ** 6 else 5):
+        view = flat[shift:shift + n * width].view(n, width)
+        before = _kernels.LAUNCHES['left_pack']
+        got = cuda_select.left_pack(view, widths, caps)
+        assert _kernels.LAUNCHES['left_pack'] == before + 1
+        want = cuda_select.left_pack_plain(view, widths, caps)
+        again = cuda_select.left_pack(view, widths, caps)
+        for a, b, c in zip(got, want, again):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        counts_seen.update(got[1].flatten().tolist())
+    if n >= 6:
+        for w_s, cap in zip(widths, caps):
+            assert {0, min(max(cap - 1, 0), w_s), min(cap, w_s),
+                    min(cap + 1, w_s), w_s} <= counts_seen
+
+
 @pytest.mark.parametrize('packed', [False, True],
                          ids=['full-rows', 'center-caps'])
 def test_window_radial_kernel_matches_plain(dev, packed):

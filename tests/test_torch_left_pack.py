@@ -41,8 +41,11 @@ def jax_left_pack(keys, widths, caps):
 @pytest.mark.parametrize('widths, caps, density', [
     ((351, 216), (40, 24), 0.08),         # water(150)'s angular grid
     ((486, 297), (32, 16), 0.05),         # water(867)'s angular grid
+    ((324, 297), (32, 16), 0.05),         # water(8670)'s angular grid
     ((100, 37, 64), (9, 5, 64), 0.2),     # three blocks, one cap = width
-], ids=['water150', 'water867', 'three-blocks'])
+    ((40, 3, 64, 17, 128, 1, 33, 90),     # MAX_BLOCKS blocks
+     (8, 2, 64, 4, 10, 1, 5, 12), 0.2),
+], ids=['water150', 'water867', 'water26k', 'three-blocks', 'eight-blocks'])
 def test_left_pack_plain_equals_jax(widths, caps, density):
     keys = random_keys(203, widths, density, seed=sum(widths))
     packed, counts = left_pack_plain(torch.tensor(keys), widths, caps)
