@@ -89,7 +89,21 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    step and the 'window' step; (d) ``select_window(compact_impl='mask')``
    at 26,010 atoms, twice with the counts set to 0 just before, equal to
    the 'kernel' selection field by field and timed beside it;
-10. prints the wall time, the kernels' JSON line, the card line again,
+10. the dense and payload ANI paths (BASELINE configs 1 and 3), which
+   launch no kernel (8 random models from the seed, self energies
+   ``linspace(-40, -1, 7)``), each call held against the same call on the
+   CPU (f32: energy relative 1e-6, max|dF| <= 1e-4 max|F|; bf16 ensemble:
+   1e-4 and 5e-3): (a) ``energy_and_forces`` on methanol and the seven
+   ligands of ``tests/data/ligands.npz``, f32 and bf16, and
+   ``energy_and_forces_batch`` on 4 perturbed ``2iuz`` conformers, ms per
+   call from CUDA events; (b) config 3 at 2,601 atoms (cell-list capacity
+   96, ``angular_capacity=32``): ``energy_and_forces_fused``,
+   ``check_overflow``, then 2 selection blocks x 8 nudged steps through
+   ``md.run_md_sticky`` with ``max_angular_neighbors`` as its overflow
+   count, ms/step; (c) the payload path at 26,010 atoms with
+   ``aev_chunk_size=512``: one selection, 4 frozen steps, finite, no
+   overflow, ms/step and peak memory; (d) every launch count stays 0;
+11. prints the wall time, the kernels' JSON line, the card line again,
    then ``{"ok": true, "device": ...}`` as the last line.
 
 Any failure raises (non-zero exit). Run from the repository root:
@@ -101,6 +115,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -109,8 +124,9 @@ if not torch.cuda.is_available():
     print('chip_smoke: torch.cuda.is_available() is false', file=sys.stderr)
     sys.exit(1)
 
-from nnpops_tpu_torch import ANIBasis, _kernels  # noqa: E402
-from nnpops_tpu_torch.md import (initialize, langevin_baoab,  # noqa: E402
+from nnpops_tpu_torch import ANIBasis, _kernels, run_configs  # noqa: E402
+from nnpops_tpu_torch.md import (MDState, initialize,  # noqa: E402
+                                 langevin_baoab, run_md_sticky,
                                  run_md_sticky_counts)
 from nnpops_tpu_torch.models import combined as combined_mod  # noqa: E402
 from nnpops_tpu_torch.models.combined import (  # noqa: E402
@@ -122,13 +138,16 @@ from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,  # noqa: E40
 from nnpops_tpu_torch.neighbors import clusters as clusters_mod  # noqa: E402
 from nnpops_tpu_torch.neighbors import window as window_mod  # noqa: E402
 from nnpops_tpu_torch.neighbors.blocked import payload_from_blocked  # noqa: E402
+from nnpops_tpu_torch.neighbors.cell_list import CellList  # noqa: E402
 from nnpops_tpu_torch.ops import (cuda_aev, cuda_cfconv,  # noqa: E402
                                   cuda_cluster, cuda_nn, cuda_pme,
                                   cuda_select, cuda_window, cuda_zpair)
+from nnpops_tpu_torch.ops.aev import max_angular_neighbors  # noqa: E402
 from nnpops_tpu_torch.ops.cfconv import build_cfconv_neighbors  # noqa: E402
 from nnpops_tpu_torch.ops.pme import PME  # noqa: E402
 from nnpops_tpu_torch.ops.aev_blocked import (  # noqa: E402
     compute_aev_blocked, triple_tables)
+from nnpops_tpu_torch.params import ani_params_to  # noqa: E402
 from nnpops_tpu_torch.profile_step import recording  # noqa: E402
 from nnpops_tpu_torch.utils import make_water_box  # noqa: E402
 
@@ -765,7 +784,8 @@ def pallas_phase(basis, params):
     deltas = payload.rad_deltas.detach().contiguous()
     angular_entries(deltas, payload.ang_mask.contiguous(), basis, layout,
                     deltas.shape[2])
-    feat = torch.cat(compute_aev_blocked(payload, basis, layout, 'plain'),
+    feat = torch.cat(compute_aev_blocked(payload, basis, layout,
+                                         angular_impl='plain'),
                      1).detach()
     nn_entries(params.ensemble, feat, model.grouping.counts, 'pallas')
     launches, p, sel = drive('pallas', model, params, pos, box, cell_list)
@@ -1776,6 +1796,193 @@ def opt_in_phase(basis, params):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# The dense and payload ANI paths (BASELINE configs 1 and 3): no kernel.
+# ---------------------------------------------------------------------------
+
+LIGANDS = Path(__file__).resolve().parent / 'tests' / 'data' / 'ligands.npz'
+DENSE_CALLS = 10
+PAYLOAD_CAPACITY = 96
+PAYLOAD_ANGULAR = 32
+PAYLOAD_CHUNK = 512     # the JAX package's probe chunk at 26k atoms
+
+
+def cpu_gates(label, e, f, e_cpu, f_cpu, bf16):
+    """The card's energy and forces against the same call on the CPU: f32
+    relative energy 1e-6 and max|dF| <= 1e-4 max|F|; bf16 1e-4 and 5e-3."""
+    rtol_e, rtol_f = (1e-4, 5e-3) if bf16 else (1e-6, 1e-4)
+    e, f = e.cpu(), f.cpu()
+    if not (torch.isfinite(e) and torch.isfinite(f).all()):
+        raise AssertionError(f'{label}: non-finite energy or forces')
+    if tuple(f.shape) != tuple(f_cpu.shape):
+        raise AssertionError(f'{label}: forces shape {tuple(f.shape)}')
+    check_close(f'{label} energy', e, e_cpu, rtol=rtol_e, atol=0.0)
+    check_normwise(f'{label} forces', f, f_cpu, rtol=rtol_f)
+    return (abs(float(e) - float(e_cpu)) / abs(float(e_cpu)),
+            max_abs(f, f_cpu) / float(f_cpu.abs().max()))
+
+
+def event_ms(fn, calls):
+    """Mean ms of ``calls`` eager calls of ``fn`` between CUDA events, after
+    one warm-up call; returns (ms, last result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls, out
+
+
+def nudge_integrator(force_fn):
+    """The force-nudge step ``pos += 1e-6 f`` as an ``md`` integrator."""
+    def step(state):
+        x = state.positions + 1e-6 * state.forces
+        energy, forces = force_fn(x)
+        return state._replace(positions=x, forces=forces, energy=energy,
+                              step=state.step + 1)
+    return step
+
+
+def dense_payload_phase(basis, card):
+    """Phase 10: the dense path (config 1) and the payload path (config 3,
+    and at 26,010 atoms), held against the CPU; no kernel may launch."""
+    params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
+                             basis, num_models=8,
+                             self_energies=np.linspace(-40, -1, 7),
+                             device=DEV)
+    cpu = torch.device('cpu')
+    params_cpu = ani_params_to(params, cpu)
+    _kernels.reset_launch_counts()
+
+    # (a) Config 1: methanol and the seven ligands, one call each.
+    ligands = np.load(LIGANDS)
+    mols = [('methanol', np.asarray(run_configs.METHANOL_Z),
+             np.asarray(run_configs.METHANOL_POSITIONS, np.float32))]
+    mols += [(k[:-len('_positions')], ligands[k[:-len('_positions')]
+                                              + '_atomic_numbers'],
+              ligands[k].astype(np.float32))
+             for k in sorted(ligands.files)
+             if k.endswith('_positions') and not k.startswith('water')]
+    if len(mols) != 8:
+        raise AssertionError(f'expected methanol and 7 ligands, got {mols}')
+    for nn_dtype in (None, 'bfloat16'):
+        for name, z, xyz in mols:
+            model = ANIModel.from_atomic_numbers(z, basis, nn_dtype=nn_dtype)
+            pos = torch.tensor(xyz, device=DEV)
+            ms, (e, f) = event_ms(
+                lambda: model.energy_and_forces(params, pos), DENSE_CALLS)
+            e_cpu, f_cpu = model.energy_and_forces(params_cpu, pos.cpu())
+            err_e, err_f = cpu_gates(f'config 1 {name} {nn_dtype}', e, f,
+                                     e_cpu, f_cpu, nn_dtype is not None)
+            print(f'config 1 {name} ({len(z)} atoms, nn {nn_dtype or "f32"}):'
+                  f' energy_and_forces {ms:.3f} ms/call (CUDA events, '
+                  f'{DENSE_CALLS} calls; {card}); vs CPU: E rel {err_e:.2g},'
+                  f' max|dF|/max|F| {err_f:.2g}')
+        name, z, xyz = next(m for m in mols if m[0] == '2iuz')
+        confs = torch.tensor(xyz + 0.02 * np.random.RandomState(SEED).randn(
+            4, *xyz.shape).astype(np.float32), device=DEV)
+        model = ANIModel.from_atomic_numbers(z, basis, nn_dtype=nn_dtype)
+        ms, (e, f) = event_ms(
+            lambda: model.energy_and_forces_batch(params, confs), 3)
+        e_cpu, f_cpu = model.energy_and_forces_batch(params_cpu, confs.cpu())
+        errs = [cpu_gates(f'config 1 batch {i} {nn_dtype}', e[i], f[i],
+                          e_cpu[i], f_cpu[i], nn_dtype is not None)
+                for i in range(4)]
+        print(f'config 1 batch of 4 {name} conformers (nn {nn_dtype or "f32"}'
+              f'): {ms:.3f} ms/call ({card}); vs CPU max: E rel '
+              f'{max(e for e, _ in errs):.2g}, max|dF|/max|F| '
+              f'{max(f for _, f in errs):.2g}')
+
+    # (b) Config 3: 2,601 waters' atoms, the payload path.
+    water = make_water_box(MOLECULES, seed=SEED)
+    model = ANIModel.from_atomic_numbers(water.atomic_numbers, basis,
+                                         angular_capacity=PAYLOAD_ANGULAR)
+    cells = CellList.create(water.box, basis.radial_cutoff,
+                            capacity=PAYLOAD_CAPACITY)
+    pos = torch.tensor(water.positions, device=DEV)
+    box = torch.tensor(water.box, device=DEV)
+    ms, (e, f) = event_ms(
+        lambda: model.energy_and_forces_fused(params, pos, box, cells), 5)
+    e_cpu, f_cpu = model.energy_and_forces_fused(params_cpu, pos.cpu(),
+                                                 box.cpu(), cells)
+    err_e, err_f = cpu_gates('config 3', e, f, e_cpu, f_cpu, False)
+    model.check_overflow(pos, box, cells)
+    print(f'config 3 ({model.num_atoms} atoms, cells {cells.ncells} x '
+          f'{cells.cell_capacity}, K {cells.capacity}, K_ang '
+          f'{model.angular_capacity}): energy_and_forces_fused {ms:.3f} '
+          f'ms/call ({card}); vs CPU: E rel {err_e:.2g}, max|dF|/max|F| '
+          f'{err_f:.2g}; check_overflow passed')
+
+    def sticky(model, cells, pos, box, blocks, steps):
+        ra = basis.angular_cutoff
+        e0, f0 = model.energy_and_forces_fused(params, pos, box, cells)
+        state = MDState(pos, torch.zeros_like(pos), f0, e0,
+                        torch.Generator(device=DEV),
+                        torch.zeros((), dtype=torch.int32, device=DEV))
+        return run_md_sticky(
+            lambda p: model.select(p, box, cells),
+            lambda sel, p: model.energy_and_forces_from_selection(
+                params, p, box, cells, sel),
+            nudge_integrator, state, blocks * steps, steps,
+            lambda sel, p: max_angular_neighbors(
+                cells.payload_from_selection(p, box, sel), ra))
+
+    ms, (final, energies, stats) = event_ms(
+        lambda: sticky(model, cells, pos, box, BLOCKS, REFRESH), 1)
+    steps = BLOCKS * REFRESH
+    stats.check(cells.capacity, cells.cell_capacity, PAYLOAD_ANGULAR)
+    if not (torch.isfinite(energies).all()
+            and torch.isfinite(final.forces).all()):
+        raise AssertionError('config 3 sticky MD: non-finite output')
+    print(f'config 3 sticky MD: {BLOCKS} selections x {REFRESH} nudged steps '
+          f'(run_md_sticky, max_angular_neighbors as overflow_fn): '
+          f'{ms / steps:.3f} ms/step (CUDA events, selections and each '
+          f"block's first force call included; {card}); max counts "
+          f'{int(stats.max_neighbors)}/{int(stats.max_cell_occupancy)}/'
+          f'{int(stats.max_extra)}')
+
+    # (c) The payload path at 26,010 atoms, chunked.
+    water = make_water_box(LARGE_MOLECULES, seed=SEED)
+    model = ANIModel.from_atomic_numbers(water.atomic_numbers, basis,
+                                         angular_capacity=PAYLOAD_ANGULAR,
+                                         aev_chunk_size=PAYLOAD_CHUNK)
+    cells = CellList.create(water.box, basis.radial_cutoff,
+                            capacity=PAYLOAD_CAPACITY)
+    pos = torch.tensor(water.positions, device=DEV)
+    box = torch.tensor(water.box, device=DEV)
+    sel = model.select(pos, box, cells)
+    p = pos
+    model.energy_and_forces_from_selection(params, p, box, cells, sel)
+    torch.cuda.reset_peak_memory_stats()
+
+    def frozen():
+        nonlocal p
+        e, f = model.energy_and_forces_from_selection(params, p, box, cells,
+                                                      sel)
+        p = p + 1e-6 * f
+        return e, f
+
+    ms, (e, f) = event_ms(frozen, LARGE_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (torch.isfinite(e) and torch.isfinite(f).all()):
+        raise AssertionError('payload 26k: non-finite output')
+    model.check_overflow(p, box, cells, sel)
+    print(f'payload 26k ({model.num_atoms} atoms, chunk {PAYLOAD_CHUNK}): '
+          f'{ms:.3f} ms/step over {LARGE_STEPS} frozen steps (CUDA events; '
+          f'{card}); peak memory {peak:.2f} GiB; no overflow')
+
+    # (d) No kernel launched in (a)-(c).
+    launched = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f'the dense and payload paths launched '
+                             f'kernels: {launched}')
+    print('dense and payload paths: no kernel launched')
+
+
 def main():
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1811,6 +2018,7 @@ def main():
     kernels['pme_window_fwd'], kernels['pme_window_bwd'] = config5_phase(basis)
     kernels['cfconv_bwd'] = cfconv_phase()
     kernels.update(opt_in_phase(basis, params))
+    dense_payload_phase(basis, smi[0])
 
     print(f'chip_smoke wall time: {time.perf_counter() - t_start:.1f} s '
           '(the kernels\' build included)')

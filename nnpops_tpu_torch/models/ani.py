@@ -1,21 +1,30 @@
-"""The composite ANI model (port of ``nnpops_tpu.models.ani``, the
-species-blocked and window paths).
+"""The composite ANI model (port of ``nnpops_tpu.models.ani``).
 
 Species conversion -> AEV -> species-grouped ensemble -> self energies,
-with forces from ``torch.autograd.grad`` on the positions. The Verlet-skin
-selection (``select``) is refreshed every few steps; every step runs only
-the differentiable phase (``energy_and_forces_from_selection``).
+with forces from ``torch.autograd.grad`` on the positions.
 
-Implemented ``aev_impl`` values: 'window' (the production path: window
-selection with the left-pack kernel, window radial kernel, tiered angular
-kernel), 'blocked' (PyTorch angular block) and 'pallas' (the angular CUDA
-kernel; the names are kept from the JAX package). ``window_radial``, the
-window path's radial kernel: 'window' (the default), 'pair' (the symmetric
-z-pair kernel) or 'cluster' (the cluster-pair kernel over a planned
-``ClusterPlan``). ``nn_impl``: 'xla' (PyTorch reference of the grouped
-ensemble, f32 or ``nn_dtype='bfloat16'``) or 'fused' (the fused-NN CUDA
-kernel, bf16 operands). The dense and payload AEV paths (ROADMAP A.4, A.6)
-raise NotImplementedError.
+Three families of entry points:
+- the dense path, the reference's ``OptimizedTorchANI.forward``: ``aev``,
+  ``energy``, ``energy_and_forces`` and their conformer batches, over the
+  all-atoms list or a given ``neighbors`` list (``ops.aev.compute_aev``);
+- the fused path: ``energy_fused`` / ``energy_and_forces_fused`` build the
+  neighbor selection inline from a ``CellList``;
+- sticky (Verlet-skin) stepping: ``select`` freezes a selection every few
+  steps, and every step runs only the differentiable phase
+  (``energy_and_forces_from_selection``).
+
+``aev_impl`` picks the cell-list AEV: 'payload' (the default: a
+``SlotSelection`` and the payload AEV, ``ops.aev.compute_aev_from_payload``,
+no kernel), 'window' (the production path: window selection with the
+left-pack kernel, window radial kernel, tiered angular kernel), 'blocked'
+(PyTorch angular block) and 'pallas' (the angular CUDA kernel; the names
+are kept from the JAX package). ``window_radial``, the window path's radial
+kernel: 'window' (the default), 'pair' (the symmetric z-pair kernel) or
+'cluster' (the cluster-pair kernel over a planned ``ClusterPlan``).
+``nn_impl`` (the grouped-row paths): 'xla' (PyTorch reference of the
+grouped ensemble, f32 or ``nn_dtype='bfloat16'``) or 'fused' (the fused-NN
+CUDA kernel, bf16 operands); the dense and payload paths run the PyTorch
+ensemble, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,15 +39,17 @@ from ..config import ANI2X_ELEMENTS, ANI2X_LAYER_DIMS, ANIBasis
 
 from ..neighbors.blocked import (BlockedLayout, payload_from_blocked,
                                  plan_blocked_layout, select_blocked)
-from ..neighbors.cell_list import CellList
+from ..neighbors.cell_list import CellList, SlotSelection
 from ..neighbors.clusters import plan_clusters
 from ..neighbors.window import (RADIAL_IMPLS, WindowSelection,
                                 plan_angular_tiers, plan_window_cells,
                                 select_window, window_features)
+from ..ops.aev import (aev_forward, compute_aev_from_payload,
+                       max_angular_neighbors)
 from ..ops.aev_blocked import compute_aev_blocked
 from ..ops.batched_nn import (EnsembleParams, SpeciesGrouping, build_grouping,
-                              ensemble_energy_grouped_rows, init_ensemble,
-                              resolve_device)
+                              ensemble_energy, ensemble_energy_grouped_rows,
+                              init_ensemble, resolve_device)
 from ..ops.cuda_nn import (ensemble_energy_grouped_rows_fused,
                            ensemble_energy_grouped_rows_fused_plain)
 
@@ -92,6 +103,14 @@ class ANIModel:
     """A system-bound ANI model: basis + static species assignment."""
     basis: ANIBasis
     species: Tuple[int, ...]
+    angular_capacity: Optional[int] = None
+    # Rows per block of the payload and blocked AEVs (bounds the angular
+    # intermediates' memory at large N).
+    aev_chunk_size: Optional[int] = None
+    # bf16 operands for the payload AEV's species-scatter contractions (f32
+    # accumulation): about 2e-3 relative force error, inside the reference's
+    # 5e-3 force gate but outside its energy gate, hence opt-in.
+    aev_bf16: bool = False
     aev_impl: str = 'payload'
     blocked_layout: Optional[BlockedLayout] = None
     nn_dtype: Optional[str] = None
@@ -109,6 +128,9 @@ class ANIModel:
     def from_atomic_numbers(cls, atomic_numbers,
                             basis: Optional[ANIBasis] = None,
                             elements: Sequence[int] = ANI2X_ELEMENTS,
+                            angular_capacity: Optional[int] = None,
+                            aev_chunk_size: Optional[int] = None,
+                            aev_bf16: bool = False,
                             aev_impl: str = 'payload',
                             blocked_layout=None,
                             nn_dtype: Optional[str] = None,
@@ -116,6 +138,8 @@ class ANIModel:
         basis = basis if basis is not None else ANIBasis.ani2x()
         sp = species_from_atomic_numbers(atomic_numbers, elements)
         return cls(basis=basis, species=tuple(int(s) for s in sp),
+                   angular_capacity=angular_capacity,
+                   aev_chunk_size=aev_chunk_size, aev_bf16=aev_bf16,
                    aev_impl=aev_impl, blocked_layout=blocked_layout,
                    nn_dtype=nn_dtype, nn_impl=nn_impl)
 
@@ -218,6 +242,12 @@ class ANIModel:
     def grouping(self) -> SpeciesGrouping:
         return build_grouping(self.species_array, self.basis.num_species)
 
+    @property
+    def species_onehot(self) -> np.ndarray:
+        """[N, S] float32 one-hot of the species (the payload's features)."""
+        return np.eye(self.basis.num_species, dtype=np.float32)[
+            self.species_array]
+
     @functools.lru_cache(maxsize=4)
     def _device_arrays(self, device: torch.device):
         """Species-grouping order and species ids on ``device``, made once
@@ -225,18 +255,73 @@ class ANIModel:
         return (torch.as_tensor(self.grouping.order, device=device).long(),
                 torch.as_tensor(self.species_array, device=device).long())
 
-    def _require_blocked(self):
-        if self.aev_impl not in ('blocked', 'pallas', 'window'):
-            raise NotImplementedError(
-                f'aev_impl={self.aev_impl!r}: the port implements the '
-                "species-blocked paths ('blocked', 'pallas', 'window'); call "
-                'with_blocked_layout first (the dense and payload AEV paths '
-                'are ROADMAP A.4/A.6)')
+    @functools.lru_cache(maxsize=4)
+    def _device_grouping(self, device: torch.device):
+        """The species grouping with its order and inverse as index tensors,
+        and the species one-hot, on ``device``, made once."""
+        order, _ = self._device_arrays(device)
+        g = self.grouping
+        inverse = torch.as_tensor(g.inverse, device=device).long()
+        return (g._replace(order=order, inverse=inverse),
+                torch.as_tensor(self.species_onehot, device=device))
+
+    def _dense_energy(self, params: ANIParams, feat: torch.Tensor
+                      ) -> torch.Tensor:
+        """Ensemble (rows in atom order) plus self energies."""
+        grouping, _ = self._device_grouping(feat.device)
+        _, species = self._device_arrays(feat.device)
+        e_nn = ensemble_energy(params.ensemble, feat, grouping,
+                               self.nn_compute_dtype)
+        return e_nn + torch.sum(params.self_energies.index_select(0, species))
+
+    # ---- The dense path (the reference's OptimizedTorchANI.forward).
+
+    def aev(self, positions: torch.Tensor, box: Optional[torch.Tensor] = None,
+            neighbors: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The [N, aev_length] features over the all-atoms list, or over
+        ``neighbors`` ([N, K], padded with the sentinel N)."""
+        _, species = self._device_arrays(positions.device)
+        return aev_forward(positions, species, self.basis, box=box,
+                           neighbors=neighbors,
+                           angular_capacity=self.angular_capacity)
+
+    def energy(self, params: ANIParams, positions: torch.Tensor,
+               box: Optional[torch.Tensor] = None,
+               neighbors: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Total potential energy: ensemble mean plus self energies."""
+        return self._dense_energy(params, self.aev(positions, box, neighbors))
+
+    def energy_and_forces(self, params: ANIParams, positions: torch.Tensor,
+                          box: Optional[torch.Tensor] = None,
+                          neighbors: Optional[torch.Tensor] = None,
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Energy and forces = -dE/dpositions."""
+        return _with_forces(lambda p: self.energy(params, p, box, neighbors),
+                            positions)
+
+    def energy_batch(self, params: ANIParams, positions: torch.Tensor,
+                     box: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Conformer-batch energies: ``positions [M, N, 3] -> [M]`` (this
+        model's composition in every conformer)."""
+        return torch.stack([self.energy(params, p, box) for p in positions])
+
+    def energy_and_forces_batch(self, params: ANIParams,
+                                positions: torch.Tensor,
+                                box: Optional[torch.Tensor] = None,
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched energies [M] and forces [M, N, 3]."""
+        pairs = [self.energy_and_forces(params, p, box) for p in positions]
+        return (torch.stack([e for e, _ in pairs]),
+                torch.stack([f for _, f in pairs]))
+
+    # ---- The cell-list paths.
 
     def select(self, positions: torch.Tensor, box: torch.Tensor, cell_list):
-        """Freeze a neighbor selection for sticky (Verlet-skin) stepping: a
-        WindowSelection in window mode, else a BlockedSelection."""
-        self._require_blocked()
+        """Freeze a neighbor selection for sticky (Verlet-skin) stepping; its
+        type follows ``aev_impl``: 'payload' -> SlotSelection, 'blocked' and
+        'pallas' -> BlockedSelection, 'window' -> WindowSelection."""
+        if self.aev_impl == 'payload':
+            return cell_list.select(positions, box)
         if self.aev_impl == 'window':
             g = self.grouping
             return select_window(
@@ -258,8 +343,20 @@ class ANIModel:
         capacity-free; its capacities are the per-(cell, species)
         occupancies, the angular lanes, the big-cell count and the tier
         rows. A cluster selection adds its j-cluster and candidate counts,
-        the most entries on one j-cluster and the geometric bound (0/1)."""
-        self._require_blocked()
+        the most entries on one j-cluster and the geometric bound (0/1).
+        The payload path counts the neighbors (against ``cell_list.
+        capacity``), the cell occupancy and the angular neighbors (against
+        ``angular_capacity``), from ``sel`` or a fresh payload."""
+        if self.aev_impl == 'payload':
+            if sel is not None:
+                payload = cell_list.payload_from_selection(positions, box,
+                                                           sel)
+            else:
+                payload = cell_list.build_payload(positions, box)
+            return {'max_neighbors': payload.max_neighbors,
+                    'max_cell_occupancy': payload.max_cell_occupancy,
+                    'max_angular': max_angular_neighbors(
+                        payload, self.basis.angular_cutoff)}
         sel = sel if sel is not None else self.select(positions, box, cell_list)
         if self.aev_impl != 'window':
             return {'max_neighbors': sel.max_rad,
@@ -284,6 +381,11 @@ class ANIModel:
 
     def _capacities(self, cell_list) -> dict:
         """The capacity each overflow count is held against."""
+        if self.aev_impl == 'payload':
+            return {'max_neighbors': cell_list.capacity,
+                    'max_cell_occupancy': cell_list.cell_capacity,
+                    'max_angular': (self.angular_capacity
+                                    or cell_list.capacity)}
         layout = self.blocked_layout
         if self.aev_impl != 'window':
             return {'max_neighbors': np.asarray(layout.rad_caps),
@@ -317,20 +419,26 @@ class ANIModel:
         if bad:
             raise RuntimeError(
                 f'neighbor capacity overflow (true count > capacity): {bad}; '
-                'rebuild with larger capacities (with_blocked_layout margin)')
+                'rebuild with larger capacities (CellList capacities and '
+                'angular_capacity, or the with_blocked_layout margin)')
 
     def energy_from_selection(self, params: ANIParams,
                               positions: torch.Tensor, box: torch.Tensor,
                               cell_list, sel) -> torch.Tensor:
-        """Energy against a frozen neighbor selection: payload, AEV (rows
-        species-grouped), ensemble and self energies."""
+        """Energy against a frozen neighbor selection: payload, AEV,
+        ensemble and self energies. ``sel`` is a SlotSelection ('payload'),
+        a BlockedSelection ('blocked', 'pallas') or a WindowSelection."""
         return self._energy(params, positions, box, cell_list, sel, False)
 
     def _energy(self, params, positions, box, cell_list, sel, plain: bool):
         """``plain`` swaps every kernel for its plain PyTorch version (see
         :func:`plain_energy_and_forces`)."""
-        self._require_blocked()
         order, species = self._device_arrays(positions.device)
+        if isinstance(sel, SlotSelection):
+            _, onehot = self._device_grouping(positions.device)
+            return self._payload_energy(params,
+                                        cell_list.payload_from_selection(
+                                            positions, box, sel, onehot))
         if isinstance(sel, WindowSelection):
             # Rows come out species-grouped (in the tiers' order within a
             # species block), so the ensemble runs on row slices.
@@ -348,7 +456,7 @@ class ANIModel:
                                            layout=self.blocked_layout,
                                            row_order=sel.inv_order[order])
             radial, angular = compute_aev_blocked(
-                payload, self.basis, self.blocked_layout,
+                payload, self.basis, self.blocked_layout, self.aev_chunk_size,
                 angular_impl='cuda' if pallas and not plain else 'plain')
             feat = torch.cat([radial, angular], 1)
         counts = self.grouping.counts
@@ -362,16 +470,34 @@ class ANIModel:
         sae = torch.sum(params.self_energies[species])
         return e_nn + sae
 
+    def _payload_energy(self, params: ANIParams, payload) -> torch.Tensor:
+        radial, angular = compute_aev_from_payload(
+            payload, self.basis,
+            self.angular_capacity or payload.distances.shape[1],
+            self.aev_chunk_size, torch.bfloat16 if self.aev_bf16 else None)
+        return self._dense_energy(params, torch.cat([radial, angular], 1))
+
     def energy_fused(self, params: ANIParams, positions: torch.Tensor,
                      box: torch.Tensor, cell_list) -> torch.Tensor:
-        """Total energy with the selection built inline: ``select`` then
-        ``energy_from_selection``. The payload-carrying path of the JAX
-        package needs ``CellList.build_payload`` (ROADMAP A.4/A.6) and
-        raises."""
-        self._require_blocked()
-        return self.energy_from_selection(
-            params, positions, box, cell_list,
-            self.select(positions, box, cell_list))
+        """Total energy with the neighbor selection built inline. 'payload':
+        the cell list delivers each neighbor's delta and species one-hot
+        (``CellList.build_payload``), then the payload AEV and the
+        ensemble; the other paths run ``select`` then
+        ``energy_from_selection``."""
+        if self.aev_impl != 'payload':
+            return self.energy_from_selection(
+                params, positions, box, cell_list,
+                self.select(positions, box, cell_list))
+        _, onehot = self._device_grouping(positions.device)
+        return self._payload_energy(params, cell_list.build_payload(
+            positions, box, onehot))
+
+    def energy_and_forces_fused(self, params: ANIParams,
+                                positions: torch.Tensor, box: torch.Tensor,
+                                cell_list) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`energy_fused` and forces = -dE/dpositions."""
+        return _with_forces(
+            lambda p: self.energy_fused(params, p, box, cell_list), positions)
 
     def energy_and_forces_from_selection(self, params: ANIParams,
                                          positions: torch.Tensor,
@@ -383,11 +509,19 @@ class ANIModel:
 
     def _energy_and_forces(self, params, positions, box, cell_list, sel,
                            plain: bool):
-        with torch.enable_grad():
-            pos = positions.detach().requires_grad_(True)
-            e = self._energy(params, pos, box, cell_list, sel, plain)
-            (grad,) = torch.autograd.grad(e, pos)
-        return e.detach(), -grad
+        return _with_forces(
+            lambda p: self._energy(params, p, box, cell_list, sel, plain),
+            positions)
+
+
+def _with_forces(energy_fn, positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(energy, -d energy / d positions) of ``energy_fn(positions)``."""
+    with torch.enable_grad():
+        pos = positions.detach().requires_grad_(True)
+        e = energy_fn(pos)
+        (grad,) = torch.autograd.grad(e, pos)
+    return e.detach(), -grad
 
 
 def plain_energy_and_forces(model: ANIModel, params: ANIParams,

@@ -1,4 +1,4 @@
-from .cell_list import CellList
+from .cell_list import CellList, NeighborList, neighbor_list_to_pairs
 from .blocked import (BlockedLayout, BlockedPayload, BlockedSelection,
-                      payload_from_blocked, plan_blocked_layout,
-                      select_blocked)
+                      build_blocked_payload, payload_from_blocked,
+                      plan_blocked_layout, select_blocked)

@@ -528,3 +528,13 @@ def payload_from_blocked(cell_list: CellList, positions: Tensor, box: Tensor,
         max_rad=sel.max_rad, max_ang=sel.max_ang,
         max_cell_occupancy=sel.max_cell_occupancy,
         ang_in_rad=ang_in_rad)
+
+
+def build_blocked_payload(cell_list: CellList, positions: Tensor, box: Tensor,
+                          species, layout: BlockedLayout,
+                          radial_cutoff: float, angular_cutoff: float,
+                          ) -> BlockedPayload:
+    """Select and payload in one call (non-sticky stepping)."""
+    sel = select_blocked(cell_list, positions, box, species, layout,
+                         radial_cutoff, angular_cutoff)
+    return payload_from_blocked(cell_list, positions, box, sel, layout=layout)

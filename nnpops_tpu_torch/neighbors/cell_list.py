@@ -8,12 +8,11 @@ slots, atoms x 27C candidates, atoms x K neighbors); overflow is reported
 as data (``max_neighbors``, ``max_cell_occupancy``), never as a shape
 change: the soft-failure contract of ``getNeighborPairs``.
 
-Ported: ``create``, the stencil, ``select`` (with ``build_mirror``, the
-mirror pairing of ``neighbors.window._mirror_packed``),
-``payload_from_selection``, ``build_payload`` (``_payload_dense`` on a
-degenerate one-cell grid), ``payload_distances_from_selection`` with its
-scatter-free position adjoint, and ``payload_to_half_pairs``. ``build``,
-``NeighborList`` and ``neighbor_list_to_pairs`` are not (ROADMAP A.6).
+``build`` gives a directed index list (``NeighborList``); ``select`` then
+``payload_from_selection`` (``build_payload``) a list that carries each
+neighbor's delta, distance and features, with ``select`` frozen across
+Verlet-skin steps. On a degenerate one-cell grid ``build`` and
+``build_payload`` take all pairs (``_build_dense``, ``_payload_dense``).
 
 Like the JAX package, ``select`` has no one-cell guard: on a grid under 3
 cells wide (one cell) all 27 stencil entries name cell 0, every candidate
@@ -28,6 +27,7 @@ import numpy as np
 import torch
 
 from ..geometry import box_transform, minimum_image, validate_box
+from ..ops.compaction import compact_rows
 from .pairs import MaskedPairs
 
 Tensor = torch.Tensor
@@ -66,6 +66,22 @@ class NeighborPayload(NamedTuple):
     indices: Tensor              # [N, K] int32 neighbor atom ids (N = pad)
     mask: Tensor                 # [N, K] bool
     max_neighbors: Tensor        # [] int32 true count (> K: overflow)
+    max_cell_occupancy: Tensor   # [] int32
+
+    def did_overflow(self, capacity: int, cell_capacity: int) -> Tensor:
+        return ((self.max_neighbors > capacity)
+                | (self.max_cell_occupancy > cell_capacity))
+
+
+class NeighborList(NamedTuple):
+    """A per-atom directed neighbor list (``CellList.build``).
+
+    ``max_neighbors`` is the true largest neighbor count: above K some
+    neighbors were dropped. ``max_cell_occupancy`` is the true largest cell
+    occupancy: above the cell capacity the candidates were truncated. Read
+    both on the host between segments, never inside a step."""
+    indices: Tensor              # [N, K] int32, padded with the sentinel N
+    max_neighbors: Tensor        # [] int32
     max_cell_occupancy: Tensor   # [] int32
 
     def did_overflow(self, capacity: int, cell_capacity: int) -> Tensor:
@@ -203,6 +219,47 @@ class CellList:
         cell3 = torch.clamp((frac * grid).to(torch.int32),
                             torch.zeros_like(grid), grid - 1).long()
         return (cell3[:, 0] * ny + cell3[:, 1]) * nz + cell3[:, 2]
+
+    @torch.no_grad()
+    def build(self, positions: Tensor, box: Tensor) -> NeighborList:
+        """The directed neighbor list: each atom's neighbors inside the
+        cutoff, in candidate order (the 27 stencil cells' slots), compacted
+        to K. Every integer output equals the JAX package's."""
+        n = positions.shape[0]
+        if not self.use_cells:
+            return self._build_dense(positions, box)
+        dev = positions.device
+        c = self.cell_capacity
+        cc = self.num_cells * c
+        cell_id = self.cell_ids(positions, box)
+        # Rank of each atom within its cell: one stable sort.
+        order = torch.argsort(cell_id, stable=True)
+        sorted_ids = cell_id[order]
+        first = torch.searchsorted(sorted_ids, sorted_ids, side='left')
+        rank = torch.empty_like(order).index_copy_(
+            0, order, torch.arange(n, device=dev) - first)
+        occupancy = torch.zeros(self.num_cells, dtype=torch.int32,
+                                device=dev).index_add_(
+            0, cell_id, torch.ones(n, dtype=torch.int32, device=dev))
+        # Atoms into [cells * C] slots; ranks past the capacity drop.
+        slot_idx = torch.where(rank < c, cell_id * c + rank, cc)
+        slots = _drop_scatter(cc, slot_idx, torch.arange(n, device=dev), n)
+        stencil, cand_slot = self._stencil_slots(dev)
+        cand = slots.index_select(0, cand_slot.index_select(
+            0, cell_id).reshape(-1).long()).reshape(n, 27 * c)
+        in_range = cand < n
+        safe = torch.where(in_range, cand, 0)
+        delta = positions.index_select(0, safe.reshape(-1)).reshape(
+            n, 27 * c, 3) - positions[:, None, :]
+        delta = minimum_image(delta, box)
+        d2 = torch.sum(delta * delta, -1)
+        valid = (in_range & (d2 < self.cutoff * self.cutoff)
+                 & (cand != torch.arange(n, device=dev)[:, None]))
+        counts = torch.sum(valid, 1, dtype=torch.int32)
+        take, kept_valid = compact_rows(valid, self.capacity)
+        kept = torch.where(kept_valid, torch.gather(cand, 1, take.long()), n)
+        return NeighborList(kept.to(torch.int32), torch.max(counts),
+                            torch.max(occupancy))
 
     def build_payload(self, positions: Tensor, box: Tensor,
                       features: Optional[Tensor] = None) -> NeighborPayload:
@@ -410,6 +467,25 @@ class CellList:
             max_cell_occupancy=torch.tensor(n, dtype=torch.int32, device=dev))
 
 
+    @torch.no_grad()
+    def _build_dense(self, positions: Tensor,
+                     box: Optional[Tensor]) -> NeighborList:
+        """Degenerate one-cell path: all pairs as candidates, the same
+        output contract (K capped at N)."""
+        n = positions.shape[0]
+        delta = minimum_image(positions[None, :, :] - positions[:, None, :],
+                              box)
+        d2 = torch.sum(delta * delta, -1)
+        eye = torch.eye(n, dtype=torch.bool, device=positions.device)
+        valid = (d2 < self.cutoff * self.cutoff) & ~eye
+        counts = torch.sum(valid, 1, dtype=torch.int32)
+        take, kept_valid = compact_rows(valid, min(self.capacity, n))
+        return NeighborList(
+            torch.where(kept_valid, take, n).to(torch.int32),
+            torch.max(counts),
+            torch.tensor(n, dtype=torch.int32, device=positions.device))
+
+
 def payload_to_half_pairs(payload: NeighborPayload,
                           cutoff: Optional[float] = None) -> MaskedPairs:
     """A masked half pair list (i < j) from a payload-carrying neighbor list,
@@ -430,3 +506,25 @@ def payload_to_half_pairs(payload: NeighborPayload,
         distances=torch.where(mask, payload.distances, 0.0).reshape(-1),
         mask=mask.reshape(-1),
         num_pairs=torch.sum(mask, dtype=torch.int32))
+
+
+def neighbor_list_to_pairs(nlist: NeighborList, positions: Tensor,
+                           box: Optional[Tensor] = None) -> MaskedPairs:
+    """A masked half pair list (i < j) from a directed neighbor list, for
+    consumers that iterate over pairs (PME direct space); differentiable in
+    positions."""
+    n, k = nlist.indices.shape
+    dev = positions.device
+    atom1 = torch.arange(n, device=dev)[:, None].expand(n, k).reshape(-1)
+    atom2 = nlist.indices.reshape(-1).long()
+    mask = (atom2 < n) & (atom2 > atom1)
+    safe2 = torch.where(mask, atom2, 0)
+    deltas = (positions.index_select(0, atom1)
+              - positions.index_select(0, safe2))
+    if box is not None:
+        deltas = minimum_image(deltas, box)
+    d2 = torch.where(mask, torch.sum(deltas * deltas, -1), 1.0)
+    return MaskedPairs(torch.where(mask, atom1, 0), safe2,
+                       torch.where(mask[:, None], deltas, 0.0),
+                       torch.where(mask, torch.sqrt(d2), 0.0), mask,
+                       torch.sum(mask, dtype=torch.int32))

@@ -11,7 +11,7 @@ channels; the rest are exact zeros).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,9 +74,14 @@ def device_constant(values: Tuple[float, ...], dtype: torch.dtype,
 
 def compute_aev_blocked(payload: BlockedPayload, basis: ANIBasis,
                         layout: BlockedLayout,
+                        chunk_size: Optional[int] = None,
                         angular_impl: str = 'plain') -> AEV:
     """Radial + angular AEV from a species-blocked payload, in the reference
     layout (radial [N, S*R], angular [N, P*A]).
+
+    ``chunk_size``: process the rows in blocks of this many to bound the
+    [chunk, T, A] angular intermediates at large N ('plain' only: the
+    angular kernel needs no chunking).
 
     ``angular_impl``: 'plain' (the PyTorch angular block, any device) or
     'cuda' (the angular kernel's wrapper, :func:`ops.cuda_aev.angular_aev`).
@@ -86,9 +91,11 @@ def compute_aev_blocked(payload: BlockedPayload, basis: ANIBasis,
     from .cuda_aev import angular_aev, angular_aev_plain, place_angular
     if angular_impl not in ('plain', 'cuda'):
         raise ValueError(f"angular_impl={angular_impl!r} not in ('plain', 'cuda')")
+    n = payload.rad_r.shape[0]
+    if chunk_size is not None and n > chunk_size and angular_impl == 'plain':
+        return _chunked(payload, basis, layout, chunk_size)
     deltas = payload.rad_deltas
     dtype, dev = deltas.dtype, deltas.device
-    n = payload.rad_r.shape[0]
     rc = basis.radial_cutoff
 
     # ---- Radial block: per-pair term, then static per-species slice sums.
@@ -122,3 +129,23 @@ def compute_aev_blocked(payload: BlockedPayload, basis: ANIBasis,
             angular_aev_plain(ang_in, payload.ang_mask, basis, layout,
                               rad_width=rad_width), basis, layout)
     return AEV(radial.reshape(n, -1), angular)
+
+
+def _chunked(payload: BlockedPayload, basis: ANIBasis, layout: BlockedLayout,
+             chunk_size: int) -> AEV:
+    """:func:`compute_aev_blocked` ('plain') over blocks of rows (the last
+    one shorter; no padding is needed outside ``lax.map``)."""
+    def rows(x, dim):
+        n_blocks = -(-payload.rad_r.shape[0] // chunk_size)
+        return ([None] * n_blocks if x is None
+                else torch.split(x, chunk_size, dim))
+
+    fields = zip(rows(payload.rad_deltas, 1), rows(payload.rad_r, 0),
+                 rows(payload.rad_mask, 0), rows(payload.ang_deltas, 1),
+                 rows(payload.ang_r, 0), rows(payload.ang_mask, 0))
+    parts = [compute_aev_blocked(payload._replace(
+        rad_deltas=rd, rad_r=rr, rad_mask=rm, ang_deltas=ad, ang_r=ar,
+        ang_mask=am, ang_in_rad=None), basis, layout)
+        for rd, rr, rm, ad, ar, am in fields]
+    return AEV(torch.cat([p.radial for p in parts]),
+               torch.cat([p.angular for p in parts]))

@@ -1,5 +1,5 @@
 """Species-wise atomic-network MLP ensembles (port of
-``nnpops_tpu.ops.batched_nn``, the parts this slice needs).
+``nnpops_tpu.ops.batched_nn``).
 
 An MD system's species are static, so atoms are permuted into contiguous
 per-species row blocks once; each species' ensemble layer is then one real
@@ -9,7 +9,9 @@ stacked over models), ``biases[l]`` is ``[models, out_l]``.
 ``apply_species_net`` is the PyTorch reference of the JAX XLA path, f32 or
 bf16 (bf16 operands with f32 accumulation, activations rounded to bf16
 between layers, bf16 cotangents in the backward matmuls). The fused kernel
-of ``ops.cuda_nn`` has its own working types.
+of ``ops.cuda_nn`` has its own working types. ``batched_linear``,
+``pad_ensemble`` and ``apply_padded_ensemble`` are the reference's padded
+per-atom layout (BatchedNN), kept for API parity and as a cross-check.
 """
 from __future__ import annotations
 
@@ -22,8 +24,19 @@ CELU_ALPHA = 0.1
 
 
 def celu(x: torch.Tensor, alpha: float = CELU_ALPHA) -> torch.Tensor:
-    """CELU activation with the ANI alpha = 0.1."""
-    return torch.nn.functional.celu(x, alpha=alpha)
+    """CELU activation with the ANI alpha = 0.1.
+
+    On a bf16 tensor it runs JAX's ``jax.nn.celu`` op by op in bf16,
+    ``max(x, 0) + alpha * expm1(min(x, 0) / alpha)`` with alpha rounded to
+    bf16, as the JAX package's bf16 ensemble does (and so does its
+    gradient). ``F.celu`` rounds once and keeps alpha exact: on methanol
+    that moved the bf16 forces by 5.8e-3 of the largest one."""
+    if x.dtype != torch.bfloat16:
+        return torch.nn.functional.celu(x, alpha=alpha)
+    a16 = float(torch.tensor(alpha, dtype=torch.bfloat16))
+    zero = x.new_zeros(())
+    return (torch.maximum(x, zero)
+            + a16 * torch.expm1(torch.minimum(x, zero) / a16))
 
 
 class SpeciesNet(NamedTuple):
@@ -153,3 +166,87 @@ def ensemble_energy_grouped_rows(params: EnsembleParams, aev: torch.Tensor,
         total = total + torch.sum(torch.mean(e, -1))
         start += count
     return total
+
+
+def _index(a, device: torch.device) -> torch.Tensor:
+    """An int64 index tensor on ``device``; a tensor already there is used
+    as it is (a host-to-device copy inside a step would synchronise it)."""
+    if isinstance(a, torch.Tensor) and a.device == device:
+        return a.long()
+    return torch.as_tensor(np.asarray(a), device=device).long()
+
+
+def atomic_energies_grouped(params: EnsembleParams, aev: torch.Tensor,
+                            grouping: SpeciesGrouping,
+                            compute_dtype: Optional[torch.dtype] = None,
+                            ) -> torch.Tensor:
+    """Per-atom ensemble-mean energies, [N], in the original atom order.
+    ``grouping.order`` and ``.inverse`` may be numpy arrays or index tensors
+    on ``aev``'s device."""
+    gathered = aev.index_select(0, _index(grouping.order, aev.device))
+    pieces = []
+    start = 0
+    for s, count in enumerate(grouping.counts):
+        if count == 0:
+            continue
+        pieces.append(apply_species_net(params.networks[s],
+                                        gathered[start:start + count],
+                                        compute_dtype))
+        start += count
+    per_atom = torch.mean(torch.cat(pieces), -1)
+    return per_atom.index_select(0, _index(grouping.inverse, aev.device))
+
+
+def ensemble_energy(params: EnsembleParams, aev: torch.Tensor,
+                    grouping: SpeciesGrouping,
+                    compute_dtype: Optional[torch.dtype] = None,
+                    ) -> torch.Tensor:
+    """Total NN energy: the sum over atoms of the model-mean atomic
+    energy."""
+    return torch.sum(atomic_energies_grouped(params, aev, grouping,
+                                             compute_dtype))
+
+
+# ---------------------------------------------------------------------------
+# The reference's padded per-atom layout (BatchedNN).
+
+
+def batched_linear(x: torch.Tensor, weights: torch.Tensor,
+                   biases: torch.Tensor) -> torch.Tensor:
+    """The BatchedLinear op ``matmul(W, x) + b`` with per-atom, per-model
+    weights. x: [mols, atoms, models, in, 1]; weights: [1, atoms, models,
+    out, in]; biases: [1, atoms, models, out, 1] -> [mols, atoms, models,
+    out, 1]. Differentiable in every operand."""
+    return torch.matmul(weights, x) + biases
+
+
+def pad_ensemble(params: EnsembleParams, species
+                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """The grouped parameters expanded to the reference's zero-padded
+    per-atom layout, per layer ``([1, atoms, models, max_out, max_in],
+    [1, atoms, models, max_out, 1])``."""
+    species = [int(s) for s in np.asarray(species)]
+    out = []
+    for layer in range(len(params.networks[0].weights)):
+        max_out = max(net.weights[layer].shape[1] for net in params.networks)
+        max_in = max(net.weights[layer].shape[2] for net in params.networks)
+        ws, bs = [], []
+        for s in species:
+            w = params.networks[s].weights[layer]
+            b = params.networks[s].biases[layer]
+            ws.append(torch.nn.functional.pad(
+                w, (0, max_in - w.shape[2], 0, max_out - w.shape[1])))
+            bs.append(torch.nn.functional.pad(b, (0, max_out - b.shape[1])))
+        out.append((torch.stack(ws)[None], torch.stack(bs)[None][..., None]))
+    return tuple(out)
+
+
+def apply_padded_ensemble(padded_layers, aev: torch.Tensor) -> torch.Tensor:
+    """Evaluate the padded layout as the reference's BatchedNN does.
+    aev: [mols, atoms, features] -> energies [mols]."""
+    x = aev[:, :, None, :, None]
+    for i, (w, b) in enumerate(padded_layers):
+        x = batched_linear(x, w, b)
+        if i < len(padded_layers) - 1:
+            x = celu(x)
+    return torch.sum(x, (1, 2, 3, 4)) / x.shape[2]

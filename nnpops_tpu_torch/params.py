@@ -44,6 +44,15 @@ def from_jax_params(tree, device=None) -> ANIParams:
     return ANIParams(EnsembleParams(nets), _tensor(self_energies, device))
 
 
+def ani_params_to(params: ANIParams, device) -> ANIParams:
+    """A copy of ``params`` on ``device`` (e.g. the CPU twin of a model's
+    parameters on the card, for a reference run)."""
+    nets = tuple(SpeciesNet(tuple(w.to(device) for w in net.weights),
+                            tuple(b.to(device) for b in net.biases))
+                 for net in params.ensemble.networks)
+    return ANIParams(EnsembleParams(nets), params.self_energies.to(device))
+
+
 def from_npz(path: str, device=None) -> ANIParams:
     """Load an ensemble saved in the TorchANI npz layout
     (``w_s{S}_m{M}_l{L}`` [out, in], ``b_s{S}_m{M}_l{L}`` [out],

@@ -68,6 +68,19 @@ the selection with the mirror, the distance payload, the 6 forwards
 iteration, and the mirror position adjoint (a random cotangent on the
 valid lanes).
 
+``--impl dense`` and ``--impl payload`` measure the two ANI paths that
+launch no kernel (BASELINE configs 1 and 3; 8 random models, self
+energies ``linspace(-40, -1, 7)``): ``dense`` the largest ligand of
+``tests/data/ligands.npz`` (``1hvk``, 116 atoms) through
+``ANIModel.energy_and_forces``, ``payload`` the water box through
+``energy_and_forces_from_selection`` on a frozen ``SlotSelection``
+(cell-list capacity 96, ``angular_capacity=32``, ``--aev-chunk-size``
+rows a block, none by default). For the call, its CUDA-event time (3 runs
+of 4 calls) and under ``torch.profiler`` its device kernel time, kernels
+per call, busy share (device time over the median event time) and the
+kernels that take the most time; for ``payload`` the same for the
+selection and for ``energy_and_forces_fused`` (selection inline).
+
 Prints one JSON object as its last line; with ``--out-dir`` also writes
 the profiler's kernel table and a Chrome trace there. Run from the
 repository root on a machine with a CUDA GPU:
@@ -86,6 +99,7 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from . import ANIBasis, _kernels
@@ -93,6 +107,7 @@ from .models import ani as ani_module
 from .models.ani import ANIModel, init_ani_params
 from .models.combined import C5_SELF_ENERGIES, config5
 from .models.schnet import periodic_stack, periodic_stack_grads
+from .neighbors.cell_list import CellList
 from .neighbors.window import select_window
 from .ops import cuda_cfconv, cuda_zpair
 from .utils import make_water_box
@@ -262,6 +277,65 @@ def _cfconv(dev, card, out_dir):
     return res
 
 
+def _no_kernel_path(impl, dev, card, molecules, chunk, out_dir):
+    """``--impl dense`` or ``payload`` (see the module doc)."""
+    basis = ANIBasis.ani2x()
+    params = init_ani_params(
+        torch.Generator(device=dev).manual_seed(SEED), basis, num_models=8,
+        self_energies=C5_SELF_ENERGIES, device=dev)
+    if impl == 'dense':
+        data = np.load(pathlib.Path(__file__).resolve().parents[1] / 'tests'
+                       / 'data' / 'ligands.npz')
+        z = data['1hvk_atomic_numbers']
+        model = ANIModel.from_atomic_numbers(z, basis)
+        pos = torch.tensor(data['1hvk_positions'], dtype=torch.float32,
+                           device=dev)
+        call = lambda: model.energy_and_forces(params, pos)  # noqa: E731
+        parts = {}
+        res = {'molecule': '1hvk'}
+    else:
+        water = make_water_box(molecules, seed=SEED)
+        model = ANIModel.from_atomic_numbers(
+            water.atomic_numbers, basis, angular_capacity=32,
+            aev_chunk_size=chunk)
+        cl = CellList.create(water.box, basis.radial_cutoff, capacity=96)
+        pos = torch.tensor(water.positions, device=dev)
+        box = torch.tensor(water.box, device=dev)
+        sel = model.select(pos, box, cl)
+        call = lambda: model.energy_and_forces_from_selection(  # noqa: E731
+            params, pos, box, cl, sel)
+        parts = {'select': lambda: model.select(pos, box, cl),
+                 'fused': lambda: model.energy_and_forces_fused(
+                     params, pos, box, cl)}
+        res = {'aev_chunk_size': chunk}
+    res = {'card': card, 'impl': impl, 'atoms': model.num_atoms, **res}
+    timed = {'call': call, **parts}
+    for name, fn in timed.items():
+        fn()
+        events = [_event_ms(fn, 4) for _ in range(REPEATS)]
+        device_ms, kernels = _profile(fn, 2)
+        res[name] = {'ms_events': events, 'device_kernel_ms': device_ms,
+                     'kernels': kernels,
+                     'busy_share': device_ms / statistics.median(events)}
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _host_ms(call, 1)
+    top = {}
+    for name, us in _kernel_events(prof):
+        top[name[:80]] = top.get(name[:80], 0.0) + us / 1e3
+    res['call']['top_kernels_ms'] = dict(
+        sorted(top.items(), key=lambda kv: -kv[1])[:TOP])
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / 'kernels.txt').write_text(
+            prof.key_averages().table(sort_by='self_cuda_time_total',
+                                      row_limit=40))
+    print(json.dumps(res))
+    return res
+
+
 def _pair_host(step, n):
     """Device ms and kernels per call of the pair path's host side, each
     part alone with its adjoint on one step's shapes: the z-triple build
@@ -375,13 +449,15 @@ def recording(module, name, calls):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--impl', choices=('window', 'pallas', 'combined',
-                                       'cfconv'),
+                                       'cfconv', 'dense', 'payload'),
                     default='window')
     ap.add_argument('--molecules', type=int, default=MOLECULES,
                     help='waters in the box of the ANI paths')
     ap.add_argument('--radial-impl', choices=('window', 'pair', 'cluster'),
                     default='window',
                     help="the window path's radial (with --impl window)")
+    ap.add_argument('--aev-chunk-size', type=int, default=None,
+                    help='rows a block of the payload AEV (--impl payload)')
     ap.add_argument('--out-dir', type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -393,6 +469,9 @@ def main(argv=None):
     print(card)
     if args.impl == 'cfconv':
         return _cfconv(dev, card, args.out_dir)
+    if args.impl in ('dense', 'payload'):
+        return _no_kernel_path(args.impl, dev, card, args.molecules,
+                               args.aev_chunk_size, args.out_dir)
     radial = args.radial_impl
     if radial != 'window' and args.impl != 'window':
         raise SystemExit('profile_step: --radial-impl needs --impl window')

@@ -17,6 +17,7 @@ from nnpops_tpu.utils.water import make_water_box
 from nnpops_tpu_torch.models.ani import ANIModel as TModel
 from nnpops_tpu_torch.models.ani import init_ani_params as t_init
 from nnpops_tpu_torch.models.ani import plain_energy_and_forces
+from nnpops_tpu_torch.neighbors.cell_list import CellList, SlotSelection
 from nnpops_tpu_torch.params import from_jax_params, from_npz
 
 SKIN = 0.25
@@ -139,7 +140,8 @@ def test_window_paths_raise_not_implemented(system):
     ported (``test_torch_window_slice.py``, ``test_torch_zpair.py``,
     ``test_torch_clusters.py``) and follow the JAX package's switches: the
     radial switch is ignored outside window mode and sets
-    ``window_radial`` inside it. The payload path is not ported."""
+    ``window_radial`` inside it. The default 'payload' model selects a
+    SlotSelection (``test_torch_payload.py``), as JAX's does."""
     water, basis, _, _ = system
     base = TModel.from_atomic_numbers(water.atomic_numbers, basis)
     assert base.with_blocked_layout(water.positions, water.box,
@@ -156,8 +158,10 @@ def test_window_paths_raise_not_implemented(system):
     for radial in ('cluster', 'pair'):
         assert dataclasses.replace(base, window_radial=radial
                                    ).window_radial == radial
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        base.select(torch.tensor(water.positions), torch.tensor(water.box), None)
+    cell_list = CellList.create(water.box, basis.radial_cutoff, capacity=96)
+    sel = base.select(torch.tensor(water.positions), torch.tensor(water.box),
+                      cell_list)
+    assert isinstance(sel, SlotSelection)
 
 
 def test_from_npz_round_trip(system, tmp_path):

@@ -1555,3 +1555,106 @@ def test_opt_in_radial_step_matches_plain(dev, radial):
         params, pos, box, cl, window.select(pos, box, cl))
     np.testing.assert_allclose(float(e_k), float(e_w), rtol=1e-3)
     assert float((f_k - f_w).abs().max()) <= 5e-3 * float(f_w.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The dense and payload ANI paths (no kernel): the card against the CPU at
+# the gates of chip_smoke.py's phase 10.
+
+LIGANDS = np.load(__file__.rsplit('/', 1)[0] + '/data/ligands.npz')
+METHANOL_Z = (6, 1, 1, 1, 8, 1)
+METHANOL = np.array([[-0.046, 0.663, 0.0], [-1.097, 0.904, 0.174],
+                     [0.574, 1.217, 0.705], [0.137, 0.947, -1.026],
+                     [0.117, -0.716, 0.152], [1.061, -0.898, 0.033]],
+                    np.float32)
+
+
+def card_and_cpu_params(dev):
+    from nnpops_tpu_torch.params import ani_params_to
+    params = init_ani_params(torch.Generator(device=dev).manual_seed(0),
+                             ANIBasis.ani2x(),
+                             self_energies=np.linspace(-40, -1, 7),
+                             device=dev)
+    return params, ani_params_to(params, 'cpu')
+
+
+def assert_cpu_gates(e, f, e_cpu, f_cpu, bf16):
+    """f32: energy relative 1e-6, max|dF| <= 1e-4 max|F|; bf16 ensemble:
+    1e-4 and 5e-3."""
+    rtol_e, rtol_f = (1e-4, 5e-3) if bf16 else (1e-6, 1e-4)
+    assert torch.isfinite(f).all() and f.shape == f_cpu.shape
+    np.testing.assert_allclose(float(e), float(e_cpu), rtol=rtol_e)
+    assert (float((f.cpu() - f_cpu).abs().max())
+            <= rtol_f * float(f_cpu.abs().max()))
+
+
+@pytest.mark.parametrize('nn_dtype', [None, 'bfloat16'])
+def test_dense_path_matches_cpu(dev, nn_dtype):
+    """Config 1's entry points on methanol and two ligands, and the batch
+    API on 3 conformers, against the CPU; no kernel launches."""
+    params, params_cpu = card_and_cpu_params(dev)
+    _kernels.reset_launch_counts()
+    mols = [(METHANOL_Z, METHANOL)] + [
+        (LIGANDS[f'{n}_atomic_numbers'], LIGANDS[f'{n}_positions'])
+        for n in ('2iuz', '1hvk')]
+    for z, xyz in mols:
+        model = ANIModel.from_atomic_numbers(z, ANIBasis.ani2x(),
+                                             nn_dtype=nn_dtype)
+        pos = torch.tensor(xyz, dtype=torch.float32)
+        e, f = model.energy_and_forces(params, pos.to(dev))
+        assert_cpu_gates(e, f, *model.energy_and_forces(params_cpu, pos),
+                         nn_dtype is not None)
+    confs = torch.tensor(xyz + 0.02 * np.random.RandomState(1).randn(
+        3, *xyz.shape), dtype=torch.float32)
+    e, f = model.energy_and_forces_batch(params, confs.to(dev))
+    e_cpu, f_cpu = model.energy_and_forces_batch(params_cpu, confs)
+    for i in range(3):
+        assert_cpu_gates(e[i], f[i], e_cpu[i], f_cpu[i], nn_dtype is not None)
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+
+
+def payload_setup(dev, molecules=300, **kw):
+    water = make_water_box(molecules, seed=0)
+    model = ANIModel.from_atomic_numbers(water.atomic_numbers,
+                                         ANIBasis.ani2x(),
+                                         angular_capacity=32, **kw)
+    cl = CellList.create(water.box, model.basis.radial_cutoff, capacity=96)
+    return (model, cl, torch.tensor(water.positions, device=dev),
+            torch.tensor(water.box, device=dev))
+
+
+@pytest.mark.parametrize('chunk', [None, 128])
+def test_payload_path_matches_cpu(dev, chunk):
+    """Config 3's fused entry point and a frozen SlotSelection step on
+    water(300), against the CPU; the overflow counts equal the CPU's; no
+    kernel launches."""
+    params, params_cpu = card_and_cpu_params(dev)
+    model, cl, pos, box = payload_setup(dev, aev_chunk_size=chunk)
+    _kernels.reset_launch_counts()
+    e, f = model.energy_and_forces_fused(params, pos, box, cl)
+    assert_cpu_gates(e, f, *model.energy_and_forces_fused(
+        params_cpu, pos.cpu(), box.cpu(), cl), False)
+    sel = model.select(pos, box, cl)
+    e, f = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    sel_cpu = model.select(pos.cpu(), box.cpu(), cl)
+    assert_cpu_gates(e, f, *model.energy_and_forces_from_selection(
+        params_cpu, pos.cpu(), box.cpu(), cl, sel_cpu), False)
+    counts = model.overflow_counts(pos, box, cl, sel)
+    counts_cpu = model.overflow_counts(pos.cpu(), box.cpu(), cl, sel_cpu)
+    assert {k: int(v) for k, v in counts.items()} == {
+        k: int(v) for k, v in counts_cpu.items()}
+    model.check_overflow(pos, box, cl, sel)
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+
+
+def test_payload_backwards_spread_is_bounded(dev):
+    """The forces of two identical payload steps differ only through
+    autograd's ``index_add`` adjoints of the gathers (atomics on the card):
+    their spread stays within ATOMIC_SPREAD_BOUND of the largest force."""
+    params, _ = card_and_cpu_params(dev)
+    model, cl, pos, box = payload_setup(dev)
+    sel = model.select(pos, box, cl)
+    _, f1 = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    _, f2 = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    print(f'payload step forces spread: {spread(f2, f1)}')
+    assert spread(f2, f1) <= ATOMIC_SPREAD_BOUND
