@@ -103,7 +103,28 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
    count, ms/step; (c) the payload path at 26,010 atoms with
    ``aev_chunk_size=512``: one selection, 4 frozen steps, finite, no
    overflow, ms/step and peak memory; (d) every launch count stays 0;
-11. prints the wall time, the kernels' JSON line, the card line again,
+11. the parallel layer over NCCL at world size 1 (one process, one card;
+   no multi-rank run): (a) ``parallel.window_shard.window_sharded_energy``
+   on water-2.6k (the window layout of 4, the selection of
+   ``model.select``), forces by autograd, against the unsharded window
+   call with the f32 'xla' ensemble on the same selection (energy
+   relative 1e-6, max|dF| <= 1e-4 max|F|), one call's launches exactly
+   B.2 forward and backward once and B.3 forward and backward once per
+   tier, ms per call of both; (b) the DP x EP train step
+   (``parallel.sharding``; ANI-2x, 8 models, the 4 perturbed ``2iuz``
+   conformers of phase 10, force weight 0.1, SGD, 3 steps): finite
+   falling losses, after one step the parameters within 1e-4 normwise
+   (the update within 1e-3) of the same step on the CPU, ms per step; (c)
+   ``atom_sharded_energy`` (1hvk), ``tp_ensemble_energy`` and the
+   one-stage ``pipeline_ensemble_energy`` against their unsharded
+   counterparts (``pipeline_ani_ensemble_energy`` needs as many ranks as
+   network layers and runs in the CPU tests only); (d) the train state
+   through ``md.checkpoint.save_checkpoint_distributed`` /
+   ``load_checkpoint_distributed`` bit for bit; (e) the native host
+   library (built by g++) loading a mol2 and a PDB this script writes,
+   equal to the Python loaders, and the capacity planner's counts on
+   water-2.6k equal to its numpy path;
+12. prints the wall time, the kernels' JSON line, the card line again,
    then ``{"ok": true, "device": ...}`` as the last line.
 
 Any failure raises (non-zero exit). Run from the repository root:
@@ -111,9 +132,11 @@ Any failure raises (non-zero exit). Run from the repository root:
     python3 chip_smoke.py
 """
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -125,9 +148,12 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from nnpops_tpu_torch import ANIBasis, _kernels, run_configs  # noqa: E402
+from nnpops_tpu_torch import native  # noqa: E402
+from nnpops_tpu_torch.dryrun import params_tree  # noqa: E402
 from nnpops_tpu_torch.md import (MDState, initialize,  # noqa: E402
-                                 langevin_baoab, run_md_sticky,
-                                 run_md_sticky_counts)
+                                 langevin_baoab, load_checkpoint_distributed,
+                                 run_md_sticky, run_md_sticky_counts,
+                                 save_checkpoint_distributed)
 from nnpops_tpu_torch.models import combined as combined_mod  # noqa: E402
 from nnpops_tpu_torch.models.combined import (  # noqa: E402
     C5_DT, C5_FRICTION, C5_KT, C5_REFRESH, C5_SELF_ENERGIES)
@@ -143,13 +169,20 @@ from nnpops_tpu_torch.ops import (cuda_aev, cuda_cfconv,  # noqa: E402
                                   cuda_cluster, cuda_nn, cuda_pme,
                                   cuda_select, cuda_window, cuda_zpair)
 from nnpops_tpu_torch.ops.aev import max_angular_neighbors  # noqa: E402
+from nnpops_tpu_torch.ops.batched_nn import ensemble_energy  # noqa: E402
 from nnpops_tpu_torch.ops.cfconv import build_cfconv_neighbors  # noqa: E402
 from nnpops_tpu_torch.ops.pme import PME  # noqa: E402
 from nnpops_tpu_torch.ops.aev_blocked import (  # noqa: E402
     compute_aev_blocked, triple_tables)
-from nnpops_tpu_torch.params import ani_params_to  # noqa: E402
-from nnpops_tpu_torch.profile_step import recording  # noqa: E402
+from nnpops_tpu_torch.parallel import sharding as sharding_mod  # noqa: E402
+from nnpops_tpu_torch.parallel.launch import process_group  # noqa: E402
+from nnpops_tpu_torch.parallel.window_shard import (  # noqa: E402
+    window_sharded_energy)
+from nnpops_tpu_torch.params import ani_params_to, from_jax_params  # noqa: E402
+from nnpops_tpu_torch.profile_step import _kernel_events, recording  # noqa: E402
+from nnpops_tpu_torch.utils import io as utils_io  # noqa: E402
 from nnpops_tpu_torch.utils import make_water_box  # noqa: E402
+from nnpops_tpu_torch.utils.profiling import StepTimer, trace  # noqa: E402
 
 MOLECULES = 867          # 2,601 atoms, box 29.6 A
 LARGE_MOLECULES = 8670   # 26,010 atoms, box 63.8 A
@@ -1983,6 +2016,308 @@ def dense_payload_phase(basis, card):
     print('dense and payload paths: no kernel launched')
 
 
+
+# ---------------------------------------------------------------------------
+# The parallel layer at world size 1 (NCCL), the distributed checkpoint and
+# the host utilities.
+# ---------------------------------------------------------------------------
+
+TRAIN_LR = 3e-4
+TRAIN_FORCE_WEIGHT = 0.1
+TRAIN_STEPS = 3
+SHARDED_CALLS = 10
+PP_WIDTH, PP_ROWS, PP_MICROBATCHES = 256, 1024, 4
+ELEMENT_SYMBOLS = {1: 'H', 6: 'C', 7: 'N', 8: 'O', 9: 'F', 16: 'S', 17: 'Cl'}
+
+
+def with_forces(fn, pos):
+    """(energy, forces) of ``fn(pos)`` by autograd."""
+    p = pos.detach().requires_grad_(True)
+    e = fn(p)
+    (g,) = torch.autograd.grad(e, p)
+    return e.detach(), -g
+
+
+def leaf_norm(tensors):
+    return float(torch.sqrt(sum((t.detach().double() ** 2).sum()
+                                for t in tensors)))
+
+
+def traced(fn, calls=3):
+    """(device kernel ms, kernels) per call of ``fn`` under the port's
+    ``utils.profiling.trace`` (torch.profiler)."""
+    with tempfile.TemporaryDirectory() as tmp, trace(tmp) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = _kernel_events(prof)
+    return sum(us for _, us in kernels) / 1e3 / calls, len(kernels) / calls
+
+
+def window_sharded_check(basis, params, mesh, card):
+    """(a) The window-sharded force call at water-2.6k against the
+    unsharded window model (nn_impl 'xla', f32) on the same selection, and
+    its B.2 / B.3 launches, forward and backward."""
+    _, fused, cell_list, pos, box = build(MOLECULES, 'window', basis)
+    model = dataclasses.replace(fused, nn_impl='xla', nn_dtype=None)
+    sel = model.select(pos, box, cell_list)
+    fn = window_sharded_energy(model, mesh, axis='dp')
+
+    def sharded():
+        return with_forces(lambda p: fn(params, p, box, sel), pos)
+
+    def unsharded():
+        return model.energy_and_forces_from_selection(params, pos, box,
+                                                      cell_list, sel)
+
+    sharded()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    e_sh, f_sh = sharded()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    ntiers = 1 + len(model.blocked_layout.ang_tier_caps or ())
+    need = {'window_radial_fwd': 1, 'window_radial_bwd': 1,
+            'angular_aev_fwd': ntiers, 'angular_aev_bwd': ntiers}
+    if launches != need:
+        raise AssertionError(f'window sharded call launched {launches}, '
+                             f'expected {need}')
+    e_un, f_un = unsharded()
+    check_close('window sharded energy', e_sh, e_un, rtol=1e-6, atol=0.0)
+    check_normwise('window sharded forces', f_sh, f_un, rtol=1e-4)
+    t_sh = StepTimer(sharded, warmup=1).measure(iters=SHARDED_CALLS)
+    t_un = StepTimer(unsharded, warmup=1).measure(iters=SHARDED_CALLS)
+    (dev_sh, k_sh), (dev_un, k_un) = traced(sharded), traced(unsharded)
+    print(f'window_sharded_energy, world size 1 (NCCL), water-2.6k '
+          f'({model.num_atoms} atoms, {ntiers} tiers, f32 ensemble): mean '
+          f'{t_sh["mean_us"] / 1e3:.3f} / median '
+          f'{t_sh["median_us"] / 1e3:.3f} ms/call, device {dev_sh:.3f} ms '
+          f'in {k_sh:.0f} kernels; unsharded xla window call mean '
+          f'{t_un["mean_us"] / 1e3:.3f} / median '
+          f'{t_un["median_us"] / 1e3:.3f} ms/call, device {dev_un:.3f} ms '
+          f'in {k_un:.0f} kernels (StepTimer, CUDA events, {SHARDED_CALLS} '
+          f'calls, energy and forces; device time under utils.profiling.'
+          f'trace; {card}); E rel '
+          f'{abs(float(e_sh - e_un)) / abs(float(e_un)):.2g}, max|dF|/max|F|'
+          f' {max_abs(f_sh, f_un) / float(f_un.abs().max()):.2g}; launches '
+          f'in one call {launches}')
+
+
+def train_check(basis, mesh, card):
+    """(b) The DP x EP train step at world size 1 against the same step
+    on the CPU; returns (model, the state after the steps, the initial
+    parameters on the CPU, the optimizer factory)."""
+    ligands = np.load(LIGANDS)
+    z = ligands['2iuz_atomic_numbers']
+    xyz = ligands['2iuz_positions'].astype(np.float32)
+    confs = torch.tensor(xyz + 0.02 * np.random.RandomState(SEED).randn(
+        4, *xyz.shape).astype(np.float32))
+    model = ANIModel.from_atomic_numbers(z, basis)
+    cpu = torch.device('cpu')
+    params0 = init_ani_params(torch.Generator().manual_seed(SEED), basis,
+                              num_models=8, device=cpu)
+    with torch.no_grad():
+        e0 = torch.stack([model.energy(params0, c) for c in confs])
+    e_t, f_t = e0 - 1.0, torch.zeros_like(confs)
+    opt = functools.partial(torch.optim.SGD, lr=TRAIN_LR)
+
+    # The CPU reference: the plain step, once.
+    ref = from_jax_params(params_tree(params0), cpu)      # a copy
+    ref_leaves = sharding_mod.param_leaves(ref)
+    for p in ref_leaves:
+        p.requires_grad_(True)
+    ref_state = sharding_mod.TrainState(ref, opt(ref_leaves))
+    ref_state, ref_loss = sharding_mod.make_train_step(
+        model, TRAIN_FORCE_WEIGHT)(ref_state, confs, e_t, f_t)
+
+    state = sharding_mod.init_train_state(model, opt, params0, mesh)
+    step = sharding_mod.jit_train_step(model, mesh, TRAIN_FORCE_WEIGHT)
+    batch = sharding_mod.shard_batch(mesh, confs, e_t, f_t)
+    state, loss = step(state, *batch)
+    losses = [float(loss)]
+    got = [p.detach().cpu() for p in sharding_mod.param_leaves(state.params)]
+    want = [p.detach() for p in ref_leaves]
+    start = sharding_mod.param_leaves(params0)
+    err = leaf_norm([g - w for g, w in zip(got, want)]) / leaf_norm(want)
+    upd_err = (leaf_norm([g - w for g, w in zip(got, want)])
+               / leaf_norm([w - p for w, p in zip(want, start)]))
+    check_close('train step loss', torch.tensor(losses[0]), ref_loss,
+                rtol=1e-5, atol=0.0)
+    if not (err <= 1e-4 and upd_err <= 1e-3):
+        raise AssertionError(f'train step: parameters {err} (gate 1e-4) and '
+                             f'update {upd_err} (gate 1e-3) off the CPU step')
+    torch.cuda.synchronize()
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    for _ in range(TRAIN_STEPS - 1):
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+    end_ev.record()
+    torch.cuda.synchronize()
+    ms = start_ev.elapsed_time(end_ev) / (TRAIN_STEPS - 1)
+    if not (np.isfinite(losses).all()
+            and all(b < a for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f'train step: losses {losses} do not fall')
+    print(f'train step, world size 1 (NCCL), ANI-2x 8 models, 4 perturbed '
+          f'2iuz conformers ({len(z)} atoms), force_weight '
+          f'{TRAIN_FORCE_WEIGHT}, SGD lr {TRAIN_LR}: losses {losses}; '
+          f'{ms:.3f} ms/step over steps 2-{TRAIN_STEPS} (CUDA events, '
+          f'second-order force term included; {card}); after one step vs '
+          f'the CPU step: parameters {err:.2g} normwise, update '
+          f'{upd_err:.2g}')
+    return model, state, params0, opt
+
+
+def other_sharded_check(basis, params, mesh, card):
+    """(c) atom_sharded_energy, tp_ensemble_energy and
+    pipeline_ensemble_energy at world size 1, each against its unsharded
+    counterpart."""
+    ligands = np.load(LIGANDS)
+    z = ligands['1hvk_atomic_numbers']
+    pos = torch.tensor(ligands['1hvk_positions'].astype(np.float32),
+                       device=DEV)
+    model = ANIModel.from_atomic_numbers(z, basis)
+    atom_fn = sharding_mod.atom_sharded_energy(model, mesh, axis='dp')
+    ms_sh, (e_sh, f_sh) = event_ms(
+        lambda: with_forces(lambda p: atom_fn(params, p), pos), DENSE_CALLS)
+    ms_un, (e_un, f_un) = event_ms(
+        lambda: model.energy_and_forces(params, pos), DENSE_CALLS)
+    check_close('atom_sharded energy', e_sh, e_un, rtol=1e-6, atol=0.0)
+    check_normwise('atom_sharded forces', f_sh, f_un, rtol=1e-4)
+    print(f'atom_sharded_energy, world size 1, 1hvk ({len(z)} atoms): '
+          f'{ms_sh:.3f} ms/call vs energy_and_forces {ms_un:.3f} ms/call '
+          f'({card}); E rel {abs(float(e_sh - e_un)) / abs(float(e_un)):.2g}')
+
+    with torch.no_grad():
+        aev = model.aev(pos)
+        grouping, _ = model._device_grouping(DEV)
+        tp_fn = sharding_mod.tp_ensemble_energy(model, mesh, axis='mp')
+        ms_tp, e_tp = event_ms(lambda: tp_fn(params, aev), DENSE_CALLS)
+        ms_ref, e_ref = event_ms(lambda: ensemble_energy(
+            params.ensemble, aev, grouping), DENSE_CALLS)
+        check_close('tp ensemble energy', e_tp, e_ref, rtol=1e-5, atol=0.0)
+        print(f'tp_ensemble_energy, world size 1 (AEV {aev.shape[1]} / 1): '
+              f'{ms_tp:.3f} ms/call vs ensemble_energy {ms_ref:.3f} ms/call '
+              f'({card}); E rel '
+              f'{abs(float(e_tp - e_ref)) / abs(float(e_ref)):.2g}')
+
+        g = torch.Generator(device=DEV).manual_seed(SEED)
+        stage_w = torch.randn(1, PP_WIDTH, PP_WIDTH, generator=g,
+                              device=DEV) / PP_WIDTH ** 0.5
+        stage_b = 0.1 * torch.randn(1, PP_WIDTH, generator=g, device=DEV)
+        x = torch.randn(PP_ROWS, PP_WIDTH, generator=g, device=DEV)
+        pp_fn = sharding_mod.pipeline_ensemble_energy(
+            (PP_WIDTH,), mesh, axis='mp', num_microbatches=PP_MICROBATCHES)
+        ms_pp, y = event_ms(lambda: pp_fn(stage_w, stage_b, x), DENSE_CALLS)
+        ms_plain, y_ref = event_ms(
+            lambda: torch.relu(x @ stage_w[0] + stage_b[0]), DENSE_CALLS)
+        check_normwise('pipeline output', y, y_ref, rtol=1e-5)
+        print(f'pipeline_ensemble_energy, 1 stage, {PP_MICROBATCHES} '
+              f'microbatches of [{PP_ROWS // PP_MICROBATCHES}, {PP_WIDTH}]: '
+              f'{ms_pp:.3f} ms/call vs one layer {ms_plain:.3f} ms/call '
+              f'({card}); max|dy| {max_abs(y, y_ref):.2g}')
+    print('pipeline_ani_ensemble_energy: not run on the card (its stages '
+          'must equal the network depth, 4 for ANI-2x, and the card host '
+          'has one H100); its CPU tests run it over 3 gloo ranks')
+
+
+def checkpoint_check(model, state, params0, opt, mesh):
+    """(d) The train state through the distributed checkpoint and back,
+    bit for bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f'{tmp}/train_state'
+        save_checkpoint_distributed(path, state, mesh)
+        fresh = sharding_mod.init_train_state(model, opt, params0, mesh)
+        load_checkpoint_distributed(path, fresh, mesh)
+    want = sharding_mod.param_leaves(state.params)
+    got = sharding_mod.param_leaves(fresh.params)
+    if not all(torch.equal(a, b) for a, b in zip(want, got)):
+        raise AssertionError('distributed checkpoint: parameters differ')
+    if (fresh.opt_state.state_dict()['param_groups']
+            != state.opt_state.state_dict()['param_groups']):
+        raise AssertionError('distributed checkpoint: param_groups differ')
+    print(f'distributed checkpoint (torch.distributed.checkpoint, DTensor '
+          f'shards): {len(want)} parameter tensors restored bit for bit')
+
+
+def write_mol2(path, z, xyz):
+    lines = ['@<TRIPOS>MOLECULE', 'ligand', f' {len(z)} 0 1', 'SMALL',
+             '@<TRIPOS>ATOM']
+    for i, (zi, (x, y, w)) in enumerate(zip(z, xyz)):
+        sym = ELEMENT_SYMBOLS[int(zi)]
+        lines.append(f'{i + 1:7d} {sym}{i + 1:<5d} {x:10.4f} {y:10.4f} '
+                     f'{w:10.4f} {sym} 1 LIG 0.0000')
+    Path(path).write_text('\n'.join(lines) + '\n')
+
+
+def write_pdb(path, z, xyz, box):
+    edge = np.linalg.norm(box, axis=1)
+    lines = [f'CRYST1{edge[0]:9.3f}{edge[1]:9.3f}{edge[2]:9.3f}'
+             f'{90.0:7.2f}{90.0:7.2f}{90.0:7.2f} P 1           1']
+    for i, (zi, (x, y, w)) in enumerate(zip(z, xyz)):
+        sym = ELEMENT_SYMBOLS[int(zi)]
+        lines.append(f'HETATM{i + 1:5d} {sym:<4s} HOH A{i // 3 + 1:4d}    '
+                     f'{x:8.3f}{y:8.3f}{w:8.3f}  1.00  0.00          '
+                     f'{sym:>2s}')
+    Path(path).write_text('\n'.join(lines + ['END']) + '\n')
+
+
+def host_utilities_check(basis):
+    """(e) The native loader on a mol2 and a PDB this script writes, and
+    the capacity planner on water-2.6k, against the Python loaders and the
+    numpy planner."""
+    if native.get_lib() is None:
+        raise AssertionError('the native host library did not build (g++)')
+    ligands = np.load(LIGANDS)
+    water = make_water_box(MOLECULES, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        mol2, pdb = f'{tmp}/2iuz.mol2', f'{tmp}/water.pdb'
+        write_mol2(mol2, ligands['2iuz_atomic_numbers'],
+                   ligands['2iuz_positions'])
+        write_pdb(pdb, water.atomic_numbers, water.positions, water.box)
+        for path, py in ((mol2, utils_io.load_mol2(mol2)),
+                         (pdb, utils_io.load_pdb(pdb))):
+            nat = native.load_molecule(path)
+            if not (np.array_equal(nat.atomic_numbers, py.atomic_numbers)
+                    and np.allclose(nat.positions, py.positions, atol=1e-5,
+                                    rtol=0)
+                    and (py.box is None) == (nat.box is None)
+                    and (py.box is None
+                         or np.allclose(nat.box, py.box, atol=1e-4, rtol=0))):
+                raise AssertionError(f'native loader differs on {path}')
+    if not np.array_equal(nat.atomic_numbers, water.atomic_numbers):
+        raise AssertionError('the PDB round trip changed the elements')
+    args = (water.positions, water.box, basis.radial_cutoff,
+            basis.angular_cutoff, basis.radial_cutoff)
+    got = native._counts_native(native.get_lib(), *args)
+    want = native._counts_numpy(*args)
+    if got != want:
+        raise AssertionError(f'plan_capacities: native {got} != numpy {want}')
+    print(f'host utilities: native load_molecule equals load_mol2 on 2iuz '
+          f'({len(ligands["2iuz_atomic_numbers"])} atoms) and load_pdb on '
+          f'water-2.6k ({len(water.positions)} atoms, CRYST1 box); '
+          f'plan_capacities counts on water-2.6k native {got} = numpy {want}'
+          f', capacities {native.plan_capacities(*args[:4])}')
+
+
+def parallel_phase(basis, card):
+    """Phase 11: the parallel layer over NCCL at world size 1, the
+    distributed checkpoint, the host utilities."""
+    params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
+                             basis, num_models=8,
+                             self_energies=np.linspace(-40, -1, 7),
+                             device=DEV)
+    with process_group('nccl'):
+        mesh = sharding_mod.make_mesh(1, model_parallel=1,
+                                      device_type='cuda')
+        window_sharded_check(basis, params, mesh, card)
+        model, state, params0, opt = train_check(basis, mesh, card)
+        other_sharded_check(basis, params, mesh, card)
+        checkpoint_check(model, state, params0, opt, mesh)
+    host_utilities_check(basis)
+
+
 def main():
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -2019,6 +2354,7 @@ def main():
     kernels['cfconv_bwd'] = cfconv_phase()
     kernels.update(opt_in_phase(basis, params))
     dense_payload_phase(basis, smi[0])
+    parallel_phase(basis, smi[0])
 
     print(f'chip_smoke wall time: {time.perf_counter() - t_start:.1f} s '
           '(the kernels\' build included)')

@@ -10,7 +10,8 @@ its plain PyTorch version on a CPU tensor.
 
 The package imports ``torch`` and never ``jax``, and nothing of the JAX
 package: it keeps its own copies of the numpy-only configuration
-(``config.py``) and water builders (``utils.py``).
+(``config.py``), water builders and file loaders (``utils/``) and the
+native host loader (``native/``).
 """
 import torch
 

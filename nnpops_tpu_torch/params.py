@@ -5,10 +5,8 @@
 tuples: ``(ensemble, self_energies)`` with ``ensemble = (networks,)`` and
 ``networks[s] = (weights, biases)``); it needs no JAX itself.
 
-``from_npz`` reads the npz layout written by
-``nnpops_tpu.utils.torchani_io.save_ensemble_npz``. It reads the file with
-numpy directly: that module's ``load_ensemble_npz`` builds JAX arrays, and
-this package runs where JAX is not installed.
+``from_npz`` reads the npz layout written by either package's
+``utils.torchani_io.save_ensemble_npz``.
 
 ``cfconv_params_from_jax`` and ``schnet_params_from_jax`` take the JAX
 package's ``CFConvParams`` and ``SchNetParams`` trees the same way (numpy
@@ -27,6 +25,7 @@ from .models.ani import ANIParams
 from .models.schnet import (DenseParams, InteractionParams, SchNetParams)
 from .ops.batched_nn import EnsembleParams, SpeciesNet, resolve_device
 from .ops.cfconv import CFConvParams
+from .utils.torchani_io import load_ensemble_npz
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -55,25 +54,14 @@ def ani_params_to(params: ANIParams, device) -> ANIParams:
 
 def from_npz(path: str, device=None) -> ANIParams:
     """Load an ensemble saved in the TorchANI npz layout
-    (``w_s{S}_m{M}_l{L}`` [out, in], ``b_s{S}_m{M}_l{L}`` [out],
-    ``self_energies``). A file without self energies gets zeros."""
+    (``utils.torchani_io.load_ensemble_npz``) as ``ANIParams``; a file
+    without self energies gets zeros."""
     device = resolve_device(device)
-    with np.load(path) as data:
-        ns = int(data['num_species'])
-        nm = int(data['num_models'])
-        nl = int(data['num_layers'])
-        nets = []
-        for s in range(ns):
-            ws = tuple(_tensor(np.stack([data[f'w_s{s}_m{m}_l{l}']
-                                         for m in range(nm)]), device)
-                       for l in range(nl))
-            bs = tuple(_tensor(np.stack([data[f'b_s{s}_m{m}_l{l}']
-                                         for m in range(nm)]), device)
-                       for l in range(nl))
-            nets.append(SpeciesNet(ws, bs))
-        sae = (data['self_energies'] if 'self_energies' in data
-               else np.zeros(ns, np.float32))
-        return ANIParams(EnsembleParams(tuple(nets)), _tensor(sae, device))
+    ensemble, sae = load_ensemble_npz(path, device)
+    if sae is None:
+        sae = torch.zeros(len(ensemble.networks), dtype=torch.float32,
+                          device=device)
+    return ANIParams(ensemble, sae)
 
 
 def cfconv_params_from_jax(tree, device=None) -> CFConvParams:

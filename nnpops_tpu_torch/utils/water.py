@@ -1,4 +1,4 @@
-"""System builders (the port's copy of ``nnpops_tpu.utils.water``).
+"""Water-box builders (the port's copy of ``nnpops_tpu.utils.water``).
 
 Rigid TIP3P-geometry waters on a jittered cubic lattice at liquid density,
 made from a numpy seed. The port keeps its own copy so that it imports

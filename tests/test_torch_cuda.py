@@ -1658,3 +1658,41 @@ def test_payload_backwards_spread_is_bounded(dev):
     _, f2 = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
     print(f'payload step forces spread: {spread(f2, f1)}')
     assert spread(f2, f1) <= ATOMIC_SPREAD_BOUND
+
+
+def test_window_sharded_world_size_one(dev):
+    """``parallel.window_shard.window_sharded_energy`` over NCCL at world
+    size 1 on water(300) against the unsharded window call (f32 'xla'
+    ensemble) on the same selection: energy relative 1e-6, max|dF| <=
+    1e-4 max|F|; one call launches B.2 forward and backward once and B.3
+    forward and backward once per tier."""
+    from nnpops_tpu_torch.parallel.launch import process_group
+    from nnpops_tpu_torch.parallel.sharding import make_mesh
+    from nnpops_tpu_torch.parallel.window_shard import window_sharded_energy
+    params, _ = card_and_cpu_params(dev)
+    water = make_water_box(300, seed=0)
+    model = ANIModel.from_atomic_numbers(
+        water.atomic_numbers, ANIBasis.ani2x()).with_blocked_layout(
+            water.positions, water.box, margin=1.15, impl='window',
+            skin=0.25)
+    assert model.aev_impl == 'window'
+    ntiers = 1 + len(model.blocked_layout.ang_tier_caps or ())
+    cl = model.create_cell_list(water.box, skin=0.25)
+    pos = torch.tensor(water.positions, device=dev)
+    box = torch.tensor(water.box, device=dev)
+    sel = model.select(pos, box, cl)
+    with process_group('nccl'):
+        fn = window_sharded_energy(model, make_mesh(1, 1, 'cuda'))
+        _kernels.reset_launch_counts()
+        p = pos.detach().requires_grad_(True)
+        e = fn(params, p, box, sel)
+        (g,) = torch.autograd.grad(e, p)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    assert launches == {'window_radial_fwd': 1, 'window_radial_bwd': 1,
+                        'angular_aev_fwd': ntiers,
+                        'angular_aev_bwd': ntiers}, launches
+    e_u, f_u = model.energy_and_forces_from_selection(params, pos, box, cl,
+                                                      sel)
+    np.testing.assert_allclose(float(e), float(e_u), rtol=1e-6)
+    assert float((-g - f_u).abs().max()) <= 1e-4 * float(f_u.abs().max())

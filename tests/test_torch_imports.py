@@ -10,8 +10,10 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / 'nnpops_tpu_torch'
 MODULES = ['nnpops_tpu_torch'] + sorted(
-    'nnpops_tpu_torch.' + '.'.join(p.relative_to(PKG).with_suffix('').parts)
-    for p in PKG.rglob('*.py') if p.name != '__init__.py')
+    'nnpops_tpu_torch.' + '.'.join(
+        p.relative_to(PKG).parent.parts if p.name == '__init__.py'
+        else p.relative_to(PKG).with_suffix('').parts)
+    for p in PKG.rglob('*.py') if p.parent != PKG or p.name != '__init__.py')
 # The port's sources and the chip smoke script, which drives the port only.
 SOURCES = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
 
@@ -71,3 +73,21 @@ def test_import_builds_nothing():
                                       'pme_window_fwd', 'pme_window_bwd',
                                       'window_mask', 'window_radial_fwd',
                                       'window_radial_bwd'}
+
+
+def test_host_and_parallel_modules_covered():
+    """The host utilities, the native binding and the parallel layer are
+    among the modules imported above; importing them builds nothing."""
+    for name in ('utils', 'utils.water', 'utils.io', 'utils.profiling',
+                 'utils.torchani_io', 'native', 'parallel',
+                 'parallel.collectives', 'parallel.launch',
+                 'parallel.sharding', 'parallel.window_shard', 'dryrun'):
+        assert f'nnpops_tpu_torch.{name}' in MODULES, name
+    code = ('import nnpops_tpu_torch.native as n, nnpops_tpu_torch.dryrun\n'
+            'from nnpops_tpu_torch import _kernels\n'
+            'assert n._lib is None and _kernels._lib is None\n'
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == 'ok'
