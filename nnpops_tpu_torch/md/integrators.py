@@ -24,6 +24,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 Tensor = torch.Tensor
 ForceFn = Callable[[Tensor], Tuple[Tensor, Tensor]]   # positions -> (energy, forces)
 
@@ -117,14 +119,15 @@ def _sticky_block(select_fn, force_fn_of_sel, integrator_factory, state,
                   refresh_every):
     """One refresh block: a fresh selection, the forces at the block's
     start against it, then ``refresh_every`` steps. Returns (state, sel)."""
-    sel = select_fn(state.positions)
-    force_fn = lambda pos: force_fn_of_sel(sel, pos)  # noqa: E731
-    step = integrator_factory(force_fn)
-    energy, forces = force_fn(state.positions)
-    state = state._replace(energy=energy, forces=forces)
-    for _ in range(refresh_every):
-        state = step(state)
-    return state, sel
+    with span('md.block'):
+        sel = select_fn(state.positions)
+        force_fn = lambda pos: force_fn_of_sel(sel, pos)  # noqa: E731
+        step = integrator_factory(force_fn)
+        energy, forces = force_fn(state.positions)
+        state = state._replace(energy=energy, forces=forces)
+        for _ in range(refresh_every):
+            state = step(state)
+        return state, sel
 
 
 def run_md_sticky(select_fn: Callable, force_fn_of_sel: Callable,

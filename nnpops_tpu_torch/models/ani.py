@@ -46,12 +46,13 @@ from ..neighbors.window import (RADIAL_IMPLS, WindowSelection,
                                 select_window, window_features)
 from ..ops.aev import (aev_forward, compute_aev_from_payload,
                        max_angular_neighbors)
-from ..ops.aev_blocked import compute_aev_blocked
+from ..ops.aev_blocked import compute_aev_blocked, upload
 from ..ops.batched_nn import (EnsembleParams, SpeciesGrouping, build_grouping,
                               ensemble_energy, ensemble_energy_grouped_rows,
                               init_ensemble, resolve_device)
 from ..ops.cuda_nn import (ensemble_energy_grouped_rows_fused,
                            ensemble_energy_grouped_rows_fused_plain)
+from ..utils.profiling import span
 
 def species_from_atomic_numbers(atomic_numbers,
                                 elements: Sequence[int] = ANI2X_ELEMENTS,
@@ -252,8 +253,8 @@ class ANIModel:
     def _device_arrays(self, device: torch.device):
         """Species-grouping order and species ids on ``device``, made once
         (a host-to-device copy inside the step would synchronise it)."""
-        return (torch.as_tensor(self.grouping.order, device=device).long(),
-                torch.as_tensor(self.species_array, device=device).long())
+        return (upload(self.grouping.order, torch.int64, device),
+                upload(self.species_array, torch.int64, device))
 
     @functools.lru_cache(maxsize=4)
     def _device_grouping(self, device: torch.device):
@@ -320,22 +321,25 @@ class ANIModel:
         """Freeze a neighbor selection for sticky (Verlet-skin) stepping; its
         type follows ``aev_impl``: 'payload' -> SlotSelection, 'blocked' and
         'pallas' -> BlockedSelection, 'window' -> WindowSelection."""
-        if self.aev_impl == 'payload':
-            return cell_list.select(positions, box)
-        if self.aev_impl == 'window':
-            g = self.grouping
-            return select_window(
-                cell_list, positions, box, self.species_array,
-                self.blocked_layout, self.basis.radial_cutoff,
-                self.basis.angular_cutoff, grouping_order=g.order,
-                present_counts=tuple(g.counts[s]
-                                     for s in self.blocked_layout.present),
-                need_shift_planes=self.window_radial == 'window',
-                cluster_plan=(self.blocked_layout.cluster_plan
-                              if self.window_radial == 'cluster' else None))
-        return select_blocked(cell_list, positions, box, self.species_array,
-                              self.blocked_layout, self.basis.radial_cutoff,
-                              self.basis.angular_cutoff)
+        with span('select'):
+            if self.aev_impl == 'payload':
+                return cell_list.select(positions, box)
+            if self.aev_impl == 'window':
+                g = self.grouping
+                return select_window(
+                    cell_list, positions, box, self.species_array,
+                    self.blocked_layout, self.basis.radial_cutoff,
+                    self.basis.angular_cutoff, grouping_order=g.order,
+                    present_counts=tuple(
+                        g.counts[s] for s in self.blocked_layout.present),
+                    need_shift_planes=self.window_radial == 'window',
+                    cluster_plan=(self.blocked_layout.cluster_plan
+                                  if self.window_radial == 'cluster'
+                                  else None))
+            return select_blocked(cell_list, positions, box,
+                                  self.species_array, self.blocked_layout,
+                                  self.basis.radial_cutoff,
+                                  self.basis.angular_cutoff)
 
     def overflow_counts(self, positions, box, cell_list, sel=None) -> dict:
         """True counts for every static capacity of the pipeline (per present
@@ -347,37 +351,39 @@ class ANIModel:
         The payload path counts the neighbors (against ``cell_list.
         capacity``), the cell occupancy and the angular neighbors (against
         ``angular_capacity``), from ``sel`` or a fresh payload."""
-        if self.aev_impl == 'payload':
-            if sel is not None:
-                payload = cell_list.payload_from_selection(positions, box,
-                                                           sel)
-            else:
-                payload = cell_list.build_payload(positions, box)
-            return {'max_neighbors': payload.max_neighbors,
-                    'max_cell_occupancy': payload.max_cell_occupancy,
-                    'max_angular': max_angular_neighbors(
-                        payload, self.basis.angular_cutoff)}
-        sel = sel if sel is not None else self.select(positions, box, cell_list)
-        if self.aev_impl != 'window':
-            return {'max_neighbors': sel.max_rad,
-                    'max_cell_occupancy': sel.max_cell_occupancy,
-                    'max_angular': sel.max_ang}
-        counts = {'max_neighbors': sel.ang.max_rad,
-                  'max_cell_occupancy': sel.max_cell_sp,
-                  'max_angular': sel.ang.max_ang}
-        if self.blocked_layout.ang_cell_grid is not None:
-            counts['max_cell_occupancy_ang'] = sel.max_cell_sp_ang
-        if self.blocked_layout.num_big_cells is not None:
-            counts['num_big_cells'] = sel.n_big_true
-        if sel.tier is not None:
-            counts['ang_tier_rows'] = sel.tier.tier_counts
-        if sel.clusters is not None:
-            counts['cluster_jcount'] = sel.clusters.max_jcount
-            counts['cluster_cand'] = sel.clusters.max_cand
-            counts['cluster_mirror'] = sel.clusters.max_mir
-            counts['cluster_geom'] = sel.clusters.geom_violation.to(
-                torch.int32)
-        return counts
+        with span('counts'):
+            if self.aev_impl == 'payload':
+                if sel is not None:
+                    payload = cell_list.payload_from_selection(positions, box,
+                                                               sel)
+                else:
+                    payload = cell_list.build_payload(positions, box)
+                return {'max_neighbors': payload.max_neighbors,
+                        'max_cell_occupancy': payload.max_cell_occupancy,
+                        'max_angular': max_angular_neighbors(
+                            payload, self.basis.angular_cutoff)}
+            sel = (sel if sel is not None
+                   else self.select(positions, box, cell_list))
+            if self.aev_impl != 'window':
+                return {'max_neighbors': sel.max_rad,
+                        'max_cell_occupancy': sel.max_cell_occupancy,
+                        'max_angular': sel.max_ang}
+            counts = {'max_neighbors': sel.ang.max_rad,
+                      'max_cell_occupancy': sel.max_cell_sp,
+                      'max_angular': sel.ang.max_ang}
+            if self.blocked_layout.ang_cell_grid is not None:
+                counts['max_cell_occupancy_ang'] = sel.max_cell_sp_ang
+            if self.blocked_layout.num_big_cells is not None:
+                counts['num_big_cells'] = sel.n_big_true
+            if sel.tier is not None:
+                counts['ang_tier_rows'] = sel.tier.tier_counts
+            if sel.clusters is not None:
+                counts['cluster_jcount'] = sel.clusters.max_jcount
+                counts['cluster_cand'] = sel.clusters.max_cand
+                counts['cluster_mirror'] = sel.clusters.max_mir
+                counts['cluster_geom'] = sel.clusters.geom_violation.to(
+                    torch.int32)
+            return counts
 
     def _capacities(self, cell_list) -> dict:
         """The capacity each overflow count is held against."""
@@ -436,46 +442,53 @@ class ANIModel:
         order, species = self._device_arrays(positions.device)
         if isinstance(sel, SlotSelection):
             _, onehot = self._device_grouping(positions.device)
-            return self._payload_energy(params,
-                                        cell_list.payload_from_selection(
-                                            positions, box, sel, onehot))
-        if isinstance(sel, WindowSelection):
-            # Rows come out species-grouped (in the tiers' order within a
-            # species block), so the ensemble runs on row slices.
-            feat = window_features(cell_list, positions, box, sel, self.basis,
-                                   self.blocked_layout, atom_order=order,
-                                   plain=plain,
-                                   radial_impl=self.window_radial)
-        else:
-            pallas = self.aev_impl == 'pallas'
-            # The species grouping composed into the payload's row order:
-            # AEV rows come out species-grouped, so the ensemble runs on row
-            # slices.
-            payload = payload_from_blocked(cell_list, positions, box, sel,
-                                           rad_only=pallas,
-                                           layout=self.blocked_layout,
-                                           row_order=sel.inv_order[order])
-            radial, angular = compute_aev_blocked(
-                payload, self.basis, self.blocked_layout, self.aev_chunk_size,
-                angular_impl='cuda' if pallas and not plain else 'plain')
-            feat = torch.cat([radial, angular], 1)
+            with span('force.aev'):
+                feat = self._payload_features(cell_list.payload_from_selection(
+                    positions, box, sel, onehot))
+            with span('force.ensemble'):
+                return self._dense_energy(params, feat)
+        with span('force.aev'):
+            if isinstance(sel, WindowSelection):
+                # Rows come out species-grouped (in the tiers' order within
+                # a species block), so the ensemble runs on row slices.
+                feat = window_features(cell_list, positions, box, sel,
+                                       self.basis, self.blocked_layout,
+                                       atom_order=order, plain=plain,
+                                       radial_impl=self.window_radial)
+            else:
+                pallas = self.aev_impl == 'pallas'
+                # The species grouping composed into the payload's row
+                # order: AEV rows come out species-grouped, so the ensemble
+                # runs on row slices.
+                payload = payload_from_blocked(cell_list, positions, box, sel,
+                                               rad_only=pallas,
+                                               layout=self.blocked_layout,
+                                               row_order=sel.inv_order[order])
+                radial, angular = compute_aev_blocked(
+                    payload, self.basis, self.blocked_layout,
+                    self.aev_chunk_size,
+                    angular_impl='cuda' if pallas and not plain else 'plain')
+                feat = torch.cat([radial, angular], 1)
         counts = self.grouping.counts
-        if self.nn_impl == 'fused':
-            fused = (ensemble_energy_grouped_rows_fused_plain if plain
-                     else ensemble_energy_grouped_rows_fused)
-            e_nn = fused(params.ensemble, feat, counts)
-        else:
-            e_nn = ensemble_energy_grouped_rows(params.ensemble, feat, counts,
-                                                self.nn_compute_dtype)
+        with span('force.ensemble'):
+            if self.nn_impl == 'fused':
+                fused = (ensemble_energy_grouped_rows_fused_plain if plain
+                         else ensemble_energy_grouped_rows_fused)
+                e_nn = fused(params.ensemble, feat, counts)
+            else:
+                e_nn = ensemble_energy_grouped_rows(params.ensemble, feat,
+                                                    counts,
+                                                    self.nn_compute_dtype)
         sae = torch.sum(params.self_energies[species])
         return e_nn + sae
 
-    def _payload_energy(self, params: ANIParams, payload) -> torch.Tensor:
+    def _payload_features(self, payload) -> torch.Tensor:
+        """The payload AEV's [N, aev_length] features."""
         radial, angular = compute_aev_from_payload(
             payload, self.basis,
             self.angular_capacity or payload.distances.shape[1],
             self.aev_chunk_size, torch.bfloat16 if self.aev_bf16 else None)
-        return self._dense_energy(params, torch.cat([radial, angular], 1))
+        return torch.cat([radial, angular], 1)
 
     def energy_fused(self, params: ANIParams, positions: torch.Tensor,
                      box: torch.Tensor, cell_list) -> torch.Tensor:
@@ -489,8 +502,8 @@ class ANIModel:
                 params, positions, box, cell_list,
                 self.select(positions, box, cell_list))
         _, onehot = self._device_grouping(positions.device)
-        return self._payload_energy(params, cell_list.build_payload(
-            positions, box, onehot))
+        return self._dense_energy(params, self._payload_features(
+            cell_list.build_payload(positions, box, onehot)))
 
     def energy_and_forces_fused(self, params: ANIParams,
                                 positions: torch.Tensor, box: torch.Tensor,
@@ -517,11 +530,12 @@ class ANIModel:
 def _with_forces(energy_fn, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(energy, -d energy / d positions) of ``energy_fn(positions)``."""
-    with torch.enable_grad():
+    with span('force'), torch.enable_grad():
         pos = positions.detach().requires_grad_(True)
         e = energy_fn(pos)
-        (grad,) = torch.autograd.grad(e, pos)
-    return e.detach(), -grad
+        with span('force.backward'):
+            (grad,) = torch.autograd.grad(e, pos)
+        return e.detach(), -grad
 
 
 def plain_energy_and_forces(model: ANIModel, params: ANIParams,

@@ -35,6 +35,7 @@ from ..neighbors.cell_list import CellList, payload_to_half_pairs
 from ..ops.batched_nn import resolve_device
 from ..ops.pme import (PME, pme_direct_energy, pme_reciprocal_energy,
                        pme_self_energy, spread_capacity, spread_overflow)
+from ..utils.profiling import span
 from .ani import ANIModel, ANIParams
 
 Tensor = torch.Tensor
@@ -124,11 +125,12 @@ class ANIWithPME:
 
     def _energy_and_forces(self, params, positions, charges, box, cell_list,
                            sel, plain: bool):
-        with torch.enable_grad():
+        with span('force'), torch.enable_grad():
             pos = positions.detach().requires_grad_(True)
             e = self._energy(params, pos, charges, box, cell_list, sel, plain)
-            (grad,) = torch.autograd.grad(e, pos)
-        return e.detach(), -grad
+            with span('force.backward'):
+                (grad,) = torch.autograd.grad(e, pos)
+            return e.detach(), -grad
 
     def energy_and_forces_from_selection(
             self, params: ANIParams, positions: Tensor, charges: Tensor,
@@ -147,11 +149,12 @@ class ANIWithPME:
     def energy_and_forces(self, params: ANIParams, positions: Tensor,
                           charges: Tensor, box: Tensor,
                           cell_list) -> Tuple[Tensor, Tensor]:
-        with torch.enable_grad():
+        with span('force'), torch.enable_grad():
             pos = positions.detach().requires_grad_(True)
             e = self.energy(params, pos, charges, box, cell_list)
-            (grad,) = torch.autograd.grad(e, pos)
-        return e.detach(), -grad
+            with span('force.backward'):
+                (grad,) = torch.autograd.grad(e, pos)
+            return e.detach(), -grad
 
     # ---- Soft-failure contract (getNeighborPairs.py:77-83 pattern).
 

@@ -66,10 +66,11 @@ import torch
 
 from ..geometry import box_transform
 from ..ops import cuda_aev
-from ..ops.aev_blocked import device_constant
+from ..ops.aev_blocked import device_constant, upload
 from ..ops.cuda_select import left_pack, left_pack_lanes, window_mask
 from ..ops.cuda_window import FAR, window_radial, window_radial_plain
 from ..ops.cuda_zpair import pair_radial_aev
+from ..utils.profiling import span
 from .blocked import (BlockedLayout, BlockedSelection, _wrap_planes,
                       payload_from_blocked)
 from .cell_list import CellList, _perpendicular_widths
@@ -432,15 +433,15 @@ def _grid_device_tables(grid3: Tuple[int, int, int],
     f27, stencil = _window_tables(grid3)
     entry, slotoff = _lane_tables(cell_caps)
     cand_slot = stencil[:, entry] * sum(cell_caps) + slotoff[None, :]
-    return (torch.as_tensor(f27, device=device),
-            torch.as_tensor(cand_slot, device=device))
+    return (upload(f27, torch.float32, device),
+            upload(cand_slot, torch.int64, device))
 
 
 @functools.lru_cache(maxsize=16)
 def _device_stencil(grid3: Tuple[int, int, int],
                     device: torch.device) -> Tensor:
     """The stencil ``[ncells, 27]`` of ``_window_tables`` on ``device``."""
-    return torch.as_tensor(_window_tables(grid3)[1], device=device)
+    return upload(_window_tables(grid3)[1], torch.int64, device)
 
 
 def _shift_planes(f27: Tensor, box: Tensor,
@@ -605,7 +606,7 @@ def _build_tier_packed(nbr: Tensor, mask: Tensor, counts: Tensor,
                    idx=tuple(idx), mask=tuple(msk),
                    slot_rows=tuple(split_rows(srows_t)),
                    tier_counts=tier_counts,
-                   concat_pos=torch.as_tensor(concat_pos, device=dev))
+                   concat_pos=upload(concat_pos, torch.int64, dev))
 
 
 def _compact_window_mask(cc: int, cell_caps: Tuple[int, ...],
@@ -720,41 +721,44 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
     npres = len(layout.present)
     c = sum(cell_caps)
 
-    frac = box_transform(positions, torch.linalg.inv(box))
-    wrap_shift = box_transform(torch.floor(frac), box)
-    p_w = positions - wrap_shift
-
-    pres_table = np.full(layout.num_species + 1, npres, np.int64)
-    for i, s in enumerate(layout.present):
-        pres_table[s] = i
-    sp_idx = device_constant(
-        tuple(pres_table[np.asarray(species, np.int64)].tolist()),
-        torch.int64, dev)
+    with span('select.species'):
+        frac = box_transform(positions, torch.linalg.inv(box))
+        wrap_shift = box_transform(torch.floor(frac), box)
+        p_w = positions - wrap_shift
+        pres_table = np.full(layout.num_species + 1, npres, np.int64)
+        for i, s in enumerate(layout.present):
+            pres_table[s] = i
+        sp_idx = device_constant(
+            tuple(pres_table[np.asarray(species, np.int64)].tolist()),
+            torch.int64, dev)
 
     # ---- Radial grid: slot assignment only.
     grid_r = tuple(int(x) for x in cell_list.ncells)
-    (order_r, slot_r, inv_r, cell_sorted_r,
-     counts_r) = _grid_sort(p_w, box, sp_idx, grid_r, cell_caps, npres)
-    max_cell_sp = torch.max(counts_r, 0).values
-    max_occ = torch.max(torch.sum(counts_r, 1))
-    rad_slot_of_atom = torch.empty_like(slot_r).index_copy_(0, order_r, slot_r)
-    rad_slot_to_atom = _scatter(ncells * c, slot_r, order_r, n)
+    with span('select.grid_sort'):
+        (order_r, slot_r, inv_r, cell_sorted_r,
+         counts_r) = _grid_sort(p_w, box, sp_idx, grid_r, cell_caps, npres)
+        max_cell_sp = torch.max(counts_r, 0).values
+        max_occ = torch.max(torch.sum(counts_r, 1))
+        rad_slot_of_atom = torch.empty_like(slot_r).index_copy_(0, order_r,
+                                                                slot_r)
+        rad_slot_to_atom = _scatter(ncells * c, slot_r, order_r, n)
 
-    if layout.small_caps is not None:
-        is_big = torch.any(counts_r > device_constant(
-            tuple(layout.small_caps), counts_r.dtype, dev), 1)
-        cell_perm = torch.argsort((~is_big).to(torch.int8), stable=True)
-        n_big_true = torch.sum(is_big)
-    else:
-        cell_perm = torch.arange(ncells, device=dev)
-        n_big_true = torch.zeros((), dtype=torch.int64, device=dev)
-    cell_inv_perm = torch.empty_like(cell_perm).index_copy_(
-        0, cell_perm, torch.arange(ncells, device=dev))
-    if need_shift_planes:
-        f27_r, _ = _grid_device_tables(grid_r, cell_caps, dev)
-        shift_planes = _shift_planes(f27_r, box, cell_caps)
-    else:
-        shift_planes = positions.new_zeros(1, 1, 1)
+    with span('select.big_cells'):
+        if layout.small_caps is not None:
+            is_big = torch.any(counts_r > device_constant(
+                tuple(layout.small_caps), counts_r.dtype, dev), 1)
+            cell_perm = torch.argsort((~is_big).to(torch.int8), stable=True)
+            n_big_true = torch.sum(is_big)
+        else:
+            cell_perm = torch.arange(ncells, device=dev)
+            n_big_true = torch.zeros((), dtype=torch.int64, device=dev)
+        cell_inv_perm = torch.empty_like(cell_perm).index_copy_(
+            0, cell_perm, torch.arange(ncells, device=dev))
+        if need_shift_planes:
+            f27_r, _ = _grid_device_tables(grid_r, cell_caps, dev)
+            shift_planes = _shift_planes(f27_r, box, cell_caps)
+        else:
+            shift_planes = positions.new_zeros(1, 1, 1)
 
     # ---- Angular grid: candidate window, validity, left-pack.
     if layout.ang_cell_grid is not None and layout.ang_cell_caps is not None:
@@ -769,31 +773,34 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
         order, slot_of_sorted, inv_order = order_r, slot_r, inv_r
         cell_sorted, counts_a = cell_sorted_r, counts_r
     else:
-        (order, slot_of_sorted, inv_order, cell_sorted,
-         counts_a) = _grid_sort(p_w, box, sp_idx, a_grid, a_ccaps, npres)
+        with span('select.grid_sort'):
+            (order, slot_of_sorted, inv_order, cell_sorted,
+             counts_a) = _grid_sort(p_w, box, sp_idx, a_grid, a_ccaps, npres)
     max_cell_sp_ang = torch.max(counts_a, 0).values
-    pos_sorted = p_w[order]
-    pos_slots = _scatter(cc_a, slot_of_sorted, pos_sorted, FAR)
-    f27_a, cand_slot = _grid_device_tables(a_grid, a_ccaps, dev)
-    cand_cells = (pos_slots.t().index_select(1, cand_slot.reshape(-1))
-                  .reshape(3, ncells_a, cand_slot.shape[1])
-                  + _shift_planes(f27_a, box, a_ccaps))    # [3, cells, kk_a]
     skin = cell_list.cutoff - radial_cutoff
     ang_window = angular_cutoff + max(skin, 0.0)
-
     a_caps = tuple(layout.ang_caps)
     w2 = ang_window * ang_window
-    if compact_impl == 'mask':
-        nbr, m, counts, air = _compact_window_mask(
-            cc_a, a_ccaps, a_caps, cand_cells, pos_slots, slot_of_sorted,
-            cell_sorted, _device_stencil(a_grid, dev), w2)
-    else:
-        cand_pos = cand_cells.permute(1, 0, 2)[cell_sorted]  # [N, 3, kk_a]
-        d = cand_pos - pos_sorted[:, :, None]
-        d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-        cand_slot_atom = cand_slot[cell_sorted]              # [N, kk_a]
-        valid = (d2 < w2) & (cand_slot_atom != slot_of_sorted[:, None])
-        if compact_impl == 'kernel':
+    with span('select.candidates'):
+        pos_sorted = p_w[order]
+        pos_slots = _scatter(cc_a, slot_of_sorted, pos_sorted, FAR)
+        f27_a, cand_slot = _grid_device_tables(a_grid, a_ccaps, dev)
+        cand_cells = (pos_slots.t().index_select(1, cand_slot.reshape(-1))
+                      .reshape(3, ncells_a, cand_slot.shape[1])
+                      + _shift_planes(f27_a, box, a_ccaps))  # [3, cells, kk_a]
+        if compact_impl != 'mask':
+            cand_pos = cand_cells.permute(1, 0, 2)[cell_sorted]  # [N, 3, kk_a]
+            d = cand_pos - pos_sorted[:, :, None]
+            d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+            cand_slot_atom = cand_slot[cell_sorted]              # [N, kk_a]
+            valid = (d2 < w2) & (cand_slot_atom != slot_of_sorted[:, None])
+
+    with span('select.left_pack'):
+        if compact_impl == 'mask':
+            nbr, m, counts, air = _compact_window_mask(
+                cc_a, a_ccaps, a_caps, cand_cells, pos_slots, slot_of_sorted,
+                cell_sorted, _device_stencil(a_grid, dev), w2)
+        elif compact_impl == 'kernel':
             keys = torch.where(valid, cand_slot_atom, -1).to(torch.int32)
             packed, counts = left_pack(keys, [27 * cs for cs in a_ccaps],
                                        a_caps)
@@ -815,10 +822,11 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
     if (grouping_order is not None and present_counts is not None
             and layout.ang_tier_caps is not None
             and layout.ang_tier_rows is not None):
-        tier = _build_tier_packed(nbr, m, counts, slot_of_sorted, inv_order,
-                                  np.asarray(grouping_order),
-                                  tuple(int(x) for x in present_counts),
-                                  layout)
+        with span('select.tiers'):
+            tier = _build_tier_packed(nbr, m, counts, slot_of_sorted,
+                                      inv_order, np.asarray(grouping_order),
+                                      tuple(int(x) for x in present_counts),
+                                      layout)
     clusters = None
     if cluster_plan is not None:
         clusters = select_clusters(positions, box, species, cluster_plan,

@@ -19,6 +19,7 @@ import torch
 from ..config import ANIBasis
 from ..geometry import cosine_cutoff
 from ..neighbors.blocked import BlockedLayout, BlockedPayload
+from ..utils.profiling import COUNTERS
 from .aev import AEV, species_pair_index
 
 
@@ -64,12 +65,27 @@ def triple_tables(layout: BlockedLayout) -> TripleTables:
     return build_triple_tables(layout)
 
 
+def upload(values, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """``values`` (a host array or sequence) as a tensor on ``device``,
+    counted in ``utils.profiling.COUNTERS``: every host-to-device copy of
+    the window path's selection, force call and counts goes through
+    here."""
+    t = torch.as_tensor(values, dtype=dtype, device=device)
+    COUNTERS['uploads'] += 1
+    COUNTERS['upload_bytes'] += t.numel() * t.element_size()
+    return t
+
+
 @functools.lru_cache(maxsize=64)
 def device_constant(values: Tuple[float, ...], dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
-    """A small constant tensor, made once per device (a host-to-device copy
-    inside the MD step would synchronise the stream)."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    """``values`` on ``device``, uploaded (and counted) on each miss of a
+    64-entry cache keyed by the tuple itself, since a copy inside the MD
+    step would synchronise the stream. A hit uploads nothing, but the
+    caller still builds the tuple and the cache hashes and compares it: a
+    host cost that grows with its length."""
+    return upload(values, dtype, device)
 
 
 def compute_aev_blocked(payload: BlockedPayload, basis: ANIBasis,

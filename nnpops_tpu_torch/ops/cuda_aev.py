@@ -38,7 +38,7 @@ import torch
 from .. import _kernels
 from ..config import ANIBasis
 from ..neighbors.blocked import BlockedLayout
-from .aev_blocked import triple_tables
+from .aev_blocked import triple_tables, upload
 
 # Degree-8 Chebyshev-node LSQ fit of g(t) = 0.5 cos(pi sqrt(t)) + 0.5 on
 # t = (r/rc)^2 in [0, 1] (nnpops_tpu/ops/pallas_window.py FC_COEFFS): exact
@@ -189,7 +189,7 @@ class _AngularSpec:
         self.width = layout.ang_total if rad_width is None else rad_width
         col_lane = np.full(self.width, -1, np.int32)
         col_lane[lanes] = np.arange(len(lanes), dtype=np.int32)
-        self.col_lane = torch.as_tensor(col_lane, device=device)
+        self.col_lane = upload(col_lane, torch.int32, device)
         self.kat = layout.ang_total
         self.n_blk = len(layout.ang_caps)
         ints = ctypes.c_int * MAX_BLOCKS

@@ -11,6 +11,11 @@
   into ``log_dir``.
 * :class:`EnergyDriftMonitor`: the MD loop's health counter, the total
   energy's drift per picosecond against a tolerance.
+* :func:`span`: a named range of the port's own (``nnpops.<name>``) in
+  the ``torch.profiler`` trace, on the profiler's clock beside the device
+  activity; with no profiler running it does nothing.
+* :data:`COUNTERS`: the port's host-to-device uploads (count and bytes),
+  always counted; :func:`reset_counters` zeroes them.
 """
 from __future__ import annotations
 
@@ -21,6 +26,28 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+# Host-to-device uploads made through ``ops.aev_blocked.upload`` since the
+# process started or since :func:`reset_counters`.
+COUNTERS = {'uploads': 0, 'upload_bytes': 0}
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def reset_counters() -> None:
+    for key in COUNTERS:
+        COUNTERS[key] = 0
+
+
+def span(name: str):
+    """``torch.profiler.record_function('nnpops.' + name)`` while a
+    profiler (``torch.profiler``, or ``emit_nvtx`` under Nsight) is
+    running, else one shared no-op context: the check is one C call, and
+    it allocates, syncs and launches nothing. A span's device work is
+    joined to it by the trace's correlation ids."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function('nnpops.' + name)
 
 
 def _cuda_device(out) -> Optional[torch.device]:

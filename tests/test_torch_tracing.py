@@ -1,0 +1,144 @@
+"""The port's spans and upload counter (``utils.profiling.span``,
+``COUNTERS``) on the window path, water(150) on the CPU: with no profiler
+a span is one shared no-op and never makes a ``record_function``; under
+``torch.profiler`` a refresh block's trace holds the span tree, each
+sub-span inside its parent; and a selection's uploads are counted, a cold
+one's (every cache empty) and a warm one's (only the tier table
+``concat_pos``)."""
+import json
+
+import pytest
+import torch
+
+from nnpops_tpu_torch.config import ANIBasis
+from nnpops_tpu_torch.md import MDState, langevin_baoab, run_md_sticky_counts
+from nnpops_tpu_torch.models.ani import ANIModel, init_ani_params
+from nnpops_tpu_torch.neighbors import window
+from nnpops_tpu_torch.ops.aev_blocked import device_constant
+from nnpops_tpu_torch.utils import make_water_box, profiling
+
+SKIN = 0.25
+SELECT = ('select.species', 'select.grid_sort', 'select.big_cells',
+          'select.candidates', 'select.left_pack', 'select.tiers')
+FORCE = ('force.aev', 'force.ensemble', 'force.backward')
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the suite runs several pytest
+    workers on a few cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope='module')
+def system():
+    water = make_water_box(150, seed=0)
+    basis = ANIBasis.ani2x()
+    model = ANIModel.from_atomic_numbers(
+        water.atomic_numbers, basis, nn_impl='fused').with_blocked_layout(
+            water.positions, water.box, margin=1.15, impl='window', skin=SKIN)
+    assert model.aev_impl == 'window'
+    cl = model.create_cell_list(water.box, skin=SKIN)
+    params = init_ani_params(torch.Generator().manual_seed(0), basis,
+                             num_models=2, device='cpu')
+    pos, box = torch.tensor(water.positions), torch.tensor(water.box)
+    return model, cl, params, pos, box
+
+
+def test_span_off_is_one_shared_no_op():
+    assert not torch.autograd._profiler_enabled()
+    assert profiling.span('select') is profiling.span('force.aev')
+    with profiling.span('select'), profiling.span('select.tiers'):
+        pass
+
+
+def test_no_record_function_without_profiler(system, monkeypatch):
+    model, cl, params, pos, box = system
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('record_function made with no profiler')
+
+    monkeypatch.setattr(torch.profiler, 'record_function', refuse)
+    sel = model.select(pos, box, cl)
+    model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    model.overflow_counts(pos, box, cl, sel)
+
+
+def _ranges(path):
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    out = {}
+    for e in events:
+        if (e.get('ph') == 'X' and e.get('cat') == 'user_annotation'
+                and e['name'].startswith('nnpops.')):
+            out.setdefault(e['name'][len('nnpops.'):], []).append(
+                (e['ts'], e['ts'] + e['dur']))
+    return out
+
+
+def _inside(r, outer):
+    return any(s <= r[0] and r[1] <= e for s, e in outer)
+
+
+def test_span_tree_under_profiler(system, tmp_path):
+    """One refresh block (a selection, the force call at its start, one
+    BAOAB step's force call) and the counts, profiled."""
+    model, cl, params, pos, box = system
+    masses = torch.ones(pos.shape[0])
+    zeros = torch.zeros_like(pos)
+    state = MDState(pos, zeros, zeros, zeros.new_zeros(()),
+                    torch.Generator().manual_seed(1),
+                    torch.zeros((), dtype=torch.int32))
+    with profiling.trace(str(tmp_path)):
+        run_md_sticky_counts(
+            lambda p: model.select(p, box, cl),
+            lambda sel, p: model.energy_and_forces_from_selection(
+                params, p, box, cl, sel),
+            lambda f: langevin_baoab(f, masses, 1e-4, 1.0, 0.0), state, 1, 1,
+            lambda sel, p: model.overflow_counts(p, box, cl, sel))
+    ranges = _ranges(tmp_path / 'trace.json')
+    # The layout plans one angular grid apart from the radial one.
+    counts = {name: len(r) for name, r in ranges.items()}
+    assert counts == {'md.block': 1, 'select': 1, 'select.species': 1,
+                      'select.grid_sort': 2, 'select.big_cells': 1,
+                      'select.candidates': 1, 'select.left_pack': 1,
+                      'select.tiers': 1, 'force': 2, 'force.aev': 2,
+                      'force.ensemble': 2, 'force.backward': 2, 'counts': 1}
+    block = ranges['md.block']
+    for name in ('select', 'force'):
+        assert all(_inside(r, block) for r in ranges[name]), name
+    assert not any(_inside(r, block) for r in ranges['counts'])
+    for name in SELECT:
+        assert all(_inside(r, ranges['select']) for r in ranges[name]), name
+    for name in FORCE:
+        assert all(_inside(r, ranges['force']) for r in ranges[name]), name
+    # The force phases run in order within each call.
+    for k in range(2):
+        aev, ens, bwd = (ranges[name][k] for name in FORCE)
+        assert aev[1] <= ens[0] and ens[1] <= bwd[0]
+
+
+def test_selection_uploads_counted(system):
+    """A cold selection uploads each ``device_constant`` it misses, the
+    two grids' device tables (two tensors each) and ``concat_pos``; a warm
+    one only ``concat_pos`` (N int64), its ``device_constant`` calls all
+    hitting the cache."""
+    model, cl, params, pos, box = system
+    n = pos.shape[0]
+    device_constant.cache_clear()
+    window._grid_device_tables.cache_clear()
+    profiling.reset_counters()
+    model.select(pos, box, cl)
+    cold = dict(profiling.COUNTERS)
+    misses = device_constant.cache_info().misses
+    assert misses == 10
+    assert cold == {'uploads': misses + 4 + 1, 'upload_bytes': 517316}
+
+    profiling.reset_counters()
+    model.select(pos, box, cl)
+    assert profiling.COUNTERS == {'uploads': 1, 'upload_bytes': 8 * n}
+    info = device_constant.cache_info()
+    assert (info.misses, info.hits) == (misses, misses)
