@@ -52,7 +52,7 @@ from ..ops.batched_nn import (EnsembleParams, SpeciesGrouping, build_grouping,
                               init_ensemble, resolve_device)
 from ..ops.cuda_nn import (ensemble_energy_grouped_rows_fused,
                            ensemble_energy_grouped_rows_fused_plain)
-from ..utils.profiling import span
+from ..utils.profiling import COUNTERS, span
 
 def species_from_atomic_numbers(atomic_numbers,
                                 elements: Sequence[int] = ANI2X_ELEMENTS,
@@ -229,8 +229,10 @@ class ANIModel:
     def num_atoms(self) -> int:
         return len(self.species)
 
-    @property
+    @functools.cached_property
     def species_array(self) -> np.ndarray:
+        """``species`` as an int32 array, made once per model (shared by
+        every caller: do not write to it)."""
         return np.asarray(self.species, dtype=np.int32)
 
     @property
@@ -249,22 +251,39 @@ class ANIModel:
         return np.eye(self.basis.num_species, dtype=np.float32)[
             self.species_array]
 
-    @functools.lru_cache(maxsize=4)
-    def _device_arrays(self, device: torch.device):
-        """Species-grouping order and species ids on ``device``, made once
-        (a host-to-device copy inside the step would synchronise it)."""
-        return (upload(self.grouping.order, torch.int64, device),
-                upload(self.species_array, torch.int64, device))
+    @functools.cached_property
+    def _on_device(self) -> dict:
+        """This model's device tables by (name, device). Kept on the
+        instance: a cache keyed on the model would hash its N-element
+        ``species`` tuple on every lookup."""
+        return {}
 
-    @functools.lru_cache(maxsize=4)
+    def _device_arrays(self, device: torch.device):
+        """Species-grouping order and species ids (int64) on ``device``,
+        made once per model and device and counted in ``COUNTERS
+        ['selection_table_builds']``: the force call and ``select`` read
+        them with no upload (a host-to-device copy inside the step would
+        synchronise it) and no host work that grows with N."""
+        key = ('arrays', torch.device(device))
+        if key not in self._on_device:
+            COUNTERS['selection_table_builds'] += 1
+            self._on_device[key] = (
+                upload(self.grouping.order, torch.int64, device),
+                upload(self.species_array, torch.int64, device))
+        return self._on_device[key]
+
     def _device_grouping(self, device: torch.device):
         """The species grouping with its order and inverse as index tensors,
         and the species one-hot, on ``device``, made once."""
-        order, _ = self._device_arrays(device)
-        g = self.grouping
-        inverse = torch.as_tensor(g.inverse, device=device).long()
-        return (g._replace(order=order, inverse=inverse),
+        key = ('grouping', torch.device(device))
+        if key not in self._on_device:
+            order, _ = self._device_arrays(device)
+            g = self.grouping
+            inverse = torch.as_tensor(g.inverse, device=device).long()
+            self._on_device[key] = (
+                g._replace(order=order, inverse=inverse),
                 torch.as_tensor(self.species_onehot, device=device))
+        return self._on_device[key]
 
     def _dense_energy(self, params: ANIParams, feat: torch.Tensor
                       ) -> torch.Tensor:
@@ -326,10 +345,11 @@ class ANIModel:
                 return cell_list.select(positions, box)
             if self.aev_impl == 'window':
                 g = self.grouping
+                order, species = self._device_arrays(positions.device)
                 return select_window(
-                    cell_list, positions, box, self.species_array,
+                    cell_list, positions, box, species,
                     self.blocked_layout, self.basis.radial_cutoff,
-                    self.basis.angular_cutoff, grouping_order=g.order,
+                    self.basis.angular_cutoff, grouping_order=order,
                     present_counts=tuple(
                         g.counts[s] for s in self.blocked_layout.present),
                     need_shift_planes=self.window_radial == 'window',

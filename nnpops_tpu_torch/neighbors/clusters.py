@@ -354,7 +354,8 @@ def select_clusters(positions: Tensor, box: Tensor, species,
     """Freeze a cluster selection: quantile-column slot assignment, the
     two-stage j-lists and the per-entry image shifts. ``cutoff + skin``
     must be what ``plan_clusters`` sized the plan for (the plan's reach is
-    used)."""
+    used). ``species``: host ids, or a tensor of them (copied to the
+    host)."""
     del cutoff, skin
     positions = positions.detach()
     box = box.detach()
@@ -371,7 +372,9 @@ def select_clusters(positions: Tensor, box: Tensor, species,
 
     n_slots = plan.n_slots
     slot_of_atom = torch.full((n,), n_slots, dtype=torch.int64, device=dev)
-    tables = _species_tables(plan, tuple(int(s) for s in species), dev)
+    ids = (species.tolist() if isinstance(species, Tensor)
+           else [int(s) for s in species])
+    tables = _species_tables(plan, tuple(ids), dev)
     for idx, slab, col, gslot in tables:
         # Stable sorts by f32 keys, as lax.sort of (key, payload).
         o1 = idx[torch.sort(frac_in[idx, 0], stable=True).indices]

@@ -424,6 +424,21 @@ def _tier_static(present_counts: Tuple[int, ...],
 
 
 @functools.lru_cache(maxsize=32)
+def _tier_device_tables(present_counts: Tuple[int, ...],
+                        planned: Tuple[Tuple[int, ...], ...],
+                        device: torch.device):
+    """(cum_rows [ntiers + 1, npres], concat_pos [N] on ``device``) of
+    :func:`_tier_static`, made once per species counts, planned tier rows
+    and device: both depend on nothing a selection measures."""
+    tier_rows = _tier_rows_static(present_counts, planned)
+    _, concat_pos = _tier_static(present_counts, tier_rows)
+    cum_rows = np.zeros((len(tier_rows) + 1, len(present_counts)), np.int64)
+    for t, rows in enumerate(tier_rows):
+        cum_rows[t + 1] = cum_rows[t] + np.asarray(rows)
+    return cum_rows, upload(concat_pos, torch.int64, device)
+
+
+@functools.lru_cache(maxsize=32)
 def _grid_device_tables(grid3: Tuple[int, int, int],
                         cell_caps: Tuple[int, ...], device: torch.device):
     """(wrap factors [ncells, 27, 3] f32, candidate slot id of every window
@@ -503,13 +518,14 @@ def _scatter(size: int, index: Tensor, values: Tensor, fill) -> Tensor:
     return out.index_copy(0, index, values)[:size]
 
 
-def _grid_sort(p_w: Tensor, box: Tensor, sp_idx: Tensor,
+def _grid_sort(p_w: Tensor, inv_box: Tensor, sp_idx: Tensor,
                grid3: Tuple[int, int, int], cell_caps: Tuple[int, ...],
                npres: int):
     """Species-sub-blocked slot assignment on one cell grid: sort by
     (cell, species), rank within each segment. ``p_w`` is wrapped into the
-    primary box. Returns (order, slot_of_sorted, inv_order, cell_sorted,
-    cell_sp_counts [ncells, npres])."""
+    primary box, ``inv_box`` is the box's inverse. Returns (order,
+    slot_of_sorted, inv_order, cell_sorted, cell_sp_counts [ncells,
+    npres])."""
     nx, ny, nz = grid3
     ncells = nx * ny * nz
     c = sum(cell_caps)
@@ -517,7 +533,7 @@ def _grid_sort(p_w: Tensor, box: Tensor, sp_idx: Tensor,
     n = p_w.shape[0]
     dev = p_w.device
     grid = device_constant((nx, ny, nz), torch.int32, dev)
-    frac = box_transform(p_w, torch.linalg.inv(box))
+    frac = box_transform(p_w, inv_box)
     frac = frac - torch.floor(frac)              # guard fp noise at 0/1
     cell3 = torch.clamp((frac * grid).to(torch.int32),
                         torch.zeros_like(grid), grid - 1).long()
@@ -549,20 +565,20 @@ def _grid_sort(p_w: Tensor, box: Tensor, sp_idx: Tensor,
 
 def _build_tier_packed(nbr: Tensor, mask: Tensor, counts: Tensor,
                        slot_of_sorted: Tensor, inv_order: Tensor,
-                       grouping_order: np.ndarray,
-                       present_counts: Tuple[int, ...],
+                       go: Tensor, present_counts: Tuple[int, ...],
                        layout: BlockedLayout) -> AngTier:
     """Sort each species block's rows by tier (stable), then cut the rows
-    into tiers and the tier-t rows' lanes to the tier's caps."""
+    into tiers and the tier-t rows' lanes to the tier's caps. ``go``: the
+    species grouping order on the device. The row bookkeeping (``cum_rows``,
+    ``concat_pos``) is made once per species counts, planned tier rows and
+    device (:func:`_tier_device_tables`), so nothing here grows with N on
+    the host."""
     dev = nbr.device
     caps_all = (layout.ang_caps,) + tuple(layout.ang_tier_caps)
     ntiers = len(caps_all)
     ang_offs = np.cumsum((0,) + tuple(layout.ang_caps))[:-1]
-    tier_rows = _tier_rows_static(present_counts, layout.ang_tier_rows)
-    _, concat_pos = _tier_static(present_counts, tier_rows)
-    cum_rows = np.zeros((ntiers + 1, len(present_counts)), np.int64)
-    for t in range(ntiers):
-        cum_rows[t + 1] = cum_rows[t] + np.asarray(tier_rows[t])
+    cum_rows, concat_pos = _tier_device_tables(
+        present_counts, layout.ang_tier_rows, dev)
 
     # Tier of a row: the smallest caps that hold its per-species counts
     # (caps are nested, so the fits are monotone).
@@ -570,8 +586,6 @@ def _build_tier_packed(nbr: Tensor, mask: Tensor, counts: Tensor,
     for ct in caps_all[1:]:
         t_of += torch.all(counts <= device_constant(tuple(ct), counts.dtype,
                                                     dev), 1).long()
-    go = device_constant(tuple(int(x) for x in grouping_order), torch.int64,
-                         dev)
     io_g = inv_order[go]
     tk = t_of[io_g]
     starts = np.cumsum((0,) + tuple(present_counts))[:-1]
@@ -605,8 +619,7 @@ def _build_tier_packed(nbr: Tensor, mask: Tensor, counts: Tensor,
     return AngTier(row_order=io_t, row_atom=row_atom,
                    idx=tuple(idx), mask=tuple(msk),
                    slot_rows=tuple(split_rows(srows_t)),
-                   tier_counts=tier_counts,
-                   concat_pos=upload(concat_pos, torch.int64, dev))
+                   tier_counts=tier_counts, concat_pos=concat_pos)
 
 
 def _compact_window_mask(cc: int, cell_caps: Tuple[int, ...],
@@ -689,7 +702,7 @@ COMPACT_IMPLS = ('kernel', 'mask', 'sort')
 def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
                   species, layout: BlockedLayout,
                   radial_cutoff: float, angular_cutoff: float,
-                  grouping_order: Optional[np.ndarray] = None,
+                  grouping_order=None,
                   present_counts: Optional[Tuple[int, ...]] = None,
                   need_shift_planes: bool = False,
                   cluster_plan=None,
@@ -701,6 +714,11 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
     angular candidate grid, ``ang_caps`` the angular compaction. With
     ``grouping_order``/``present_counts`` (the model's species grouping) and
     a layout that plans tiers, the angular rows are tiered.
+    ``species`` and ``grouping_order``: host arrays (made into device
+    constants) or int64 tensors on the positions' device, used as they are:
+    ``ANIModel.select`` passes its device tables, made once per model and
+    device, so the window selection then builds, hashes and uploads
+    nothing of length N and never waits on the device.
     ``need_shift_planes``: build the radial grid's image-shift planes (only
     the directed 'window' radial kernel reads them). ``cluster_plan``: also
     freeze a cluster selection (``radial_impl='cluster'``).
@@ -722,21 +740,27 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
     c = sum(cell_caps)
 
     with span('select.species'):
-        frac = box_transform(positions, torch.linalg.inv(box))
+        # inv_ex: torch.linalg.inv's numbers without its check on the host.
+        inv_box = torch.linalg.inv_ex(box).inverse
+        frac = box_transform(positions, inv_box)
         wrap_shift = box_transform(torch.floor(frac), box)
         p_w = positions - wrap_shift
         pres_table = np.full(layout.num_species + 1, npres, np.int64)
         for i, s in enumerate(layout.present):
             pres_table[s] = i
-        sp_idx = device_constant(
-            tuple(pres_table[np.asarray(species, np.int64)].tolist()),
-            torch.int64, dev)
+        if isinstance(species, Tensor):
+            sp_idx = device_constant(tuple(pres_table.tolist()), torch.int64,
+                                     dev).index_select(0, species)
+        else:
+            sp_idx = device_constant(
+                tuple(pres_table[np.asarray(species, np.int64)].tolist()),
+                torch.int64, dev)
 
     # ---- Radial grid: slot assignment only.
     grid_r = tuple(int(x) for x in cell_list.ncells)
     with span('select.grid_sort'):
         (order_r, slot_r, inv_r, cell_sorted_r,
-         counts_r) = _grid_sort(p_w, box, sp_idx, grid_r, cell_caps, npres)
+         counts_r) = _grid_sort(p_w, inv_box, sp_idx, grid_r, cell_caps, npres)
         max_cell_sp = torch.max(counts_r, 0).values
         max_occ = torch.max(torch.sum(counts_r, 1))
         rad_slot_of_atom = torch.empty_like(slot_r).index_copy_(0, order_r,
@@ -775,7 +799,8 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
     else:
         with span('select.grid_sort'):
             (order, slot_of_sorted, inv_order, cell_sorted,
-             counts_a) = _grid_sort(p_w, box, sp_idx, a_grid, a_ccaps, npres)
+             counts_a) = _grid_sort(p_w, inv_box, sp_idx, a_grid, a_ccaps,
+                                   npres)
     max_cell_sp_ang = torch.max(counts_a, 0).values
     skin = cell_list.cutoff - radial_cutoff
     ang_window = angular_cutoff + max(skin, 0.0)
@@ -823,8 +848,11 @@ def select_window(cell_list: CellList, positions: Tensor, box: Tensor,
             and layout.ang_tier_caps is not None
             and layout.ang_tier_rows is not None):
         with span('select.tiers'):
+            go = (grouping_order if isinstance(grouping_order, Tensor)
+                  else device_constant(tuple(int(x) for x in grouping_order),
+                                       torch.int64, dev))
             tier = _build_tier_packed(nbr, m, counts, slot_of_sorted,
-                                      inv_order, np.asarray(grouping_order),
+                                      inv_order, go,
                                       tuple(int(x) for x in present_counts),
                                       layout)
     clusters = None

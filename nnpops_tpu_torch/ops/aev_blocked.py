@@ -70,7 +70,10 @@ def upload(values, dtype: torch.dtype,
     """``values`` (a host array or sequence) as a tensor on ``device``,
     counted in ``utils.profiling.COUNTERS``: every host-to-device copy of
     the window path's selection, force call and counts goes through
-    here."""
+    here. The per-atom tables are copied once per model and device
+    (``ANIModel._device_arrays``: grouping order, species ids) or once per
+    species counts, planned tier rows and device (``concat_pos``), so a
+    warm window selection through ``ANIModel.select`` uploads nothing."""
     t = torch.as_tensor(values, dtype=dtype, device=device)
     COUNTERS['uploads'] += 1
     COUNTERS['upload_bytes'] += t.numel() * t.element_size()
@@ -84,7 +87,12 @@ def device_constant(values: Tuple[float, ...], dtype: torch.dtype,
     64-entry cache keyed by the tuple itself, since a copy inside the MD
     step would synchronise the stream. A hit uploads nothing, but the
     caller still builds the tuple and the cache hashes and compares it: a
-    host cost that grows with its length."""
+    host cost that grows with its length. So only short tables come here
+    (the window selection through ``ANIModel.select`` asks for none longer
+    than ``num_species + 1``); the per-atom ones are made once per model
+    and device (``ANIModel._device_arrays``) and handed to
+    ``select_window`` as tensors. ``select_window`` still makes a host
+    array given in their place into an N-element constant here."""
     return upload(values, dtype, device)
 
 

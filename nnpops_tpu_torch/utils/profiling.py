@@ -14,8 +14,9 @@
 * :func:`span`: a named range of the port's own (``nnpops.<name>``) in
   the ``torch.profiler`` trace, on the profiler's clock beside the device
   activity; with no profiler running it does nothing.
-* :data:`COUNTERS`: the port's host-to-device uploads (count and bytes),
-  always counted; :func:`reset_counters` zeroes them.
+* :data:`COUNTERS`: the port's host-to-device uploads (count and bytes)
+  and builds of a model's device tables, always counted;
+  :func:`reset_counters` zeroes them.
 """
 from __future__ import annotations
 
@@ -27,9 +28,10 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-# Host-to-device uploads made through ``ops.aev_blocked.upload`` since the
-# process started or since :func:`reset_counters`.
-COUNTERS = {'uploads': 0, 'upload_bytes': 0}
+# Since the process started or since :func:`reset_counters`: host-to-device
+# uploads made through ``ops.aev_blocked.upload``, and builds of a model's
+# device tables (``ANIModel._device_arrays``, once per model and device).
+COUNTERS = {'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

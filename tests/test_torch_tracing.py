@@ -2,9 +2,9 @@
 ``COUNTERS``) on the window path, water(150) on the CPU: with no profiler
 a span is one shared no-op and never makes a ``record_function``; under
 ``torch.profiler`` a refresh block's trace holds the span tree, each
-sub-span inside its parent; and a selection's uploads are counted, a cold
-one's (every cache empty) and a warm one's (only the tier table
-``concat_pos``)."""
+sub-span inside its parent; and a selection's uploads and table builds
+are counted, a cold one's (every cache empty) and a warm one's (none)."""
+import dataclasses
 import json
 
 import pytest
@@ -121,24 +121,38 @@ def test_span_tree_under_profiler(system, tmp_path):
         assert aev[1] <= ens[0] and ens[1] <= bwd[0]
 
 
-def test_selection_uploads_counted(system):
-    """A cold selection uploads each ``device_constant`` it misses, the
-    two grids' device tables (two tensors each) and ``concat_pos``; a warm
-    one only ``concat_pos`` (N int64), its ``device_constant`` calls all
-    hitting the cache."""
+def test_selection_uploads_counted(system, monkeypatch):
+    """A cold selection (a fresh copy of the model, every cache empty)
+    builds the model's device tables once (two uploads: the grouping order
+    and the species ids) and uploads each ``device_constant`` it misses,
+    the two grids' device tables (two tensors each) and ``concat_pos``. A
+    warm one uploads and builds nothing: its ``device_constant`` calls all
+    hit the cache, and none asks for a table longer than ``num_species +
+    1``."""
     model, cl, params, pos, box = system
-    n = pos.shape[0]
+    model = dataclasses.replace(model)
     device_constant.cache_clear()
     window._grid_device_tables.cache_clear()
+    window._tier_device_tables.cache_clear()
     profiling.reset_counters()
     model.select(pos, box, cl)
     cold = dict(profiling.COUNTERS)
     misses = device_constant.cache_info().misses
-    assert misses == 10
-    assert cold == {'uploads': misses + 4 + 1, 'upload_bytes': 517316}
+    assert misses == 9
+    assert cold == {'uploads': misses + 2 + 4 + 1, 'upload_bytes': 517380,
+                    'selection_table_builds': 1}
 
+    lengths = []
+
+    def recorded(values, dtype, device):
+        lengths.append(len(values))
+        return device_constant(values, dtype, device)
+
+    monkeypatch.setattr(window, 'device_constant', recorded)
     profiling.reset_counters()
     model.select(pos, box, cl)
-    assert profiling.COUNTERS == {'uploads': 1, 'upload_bytes': 8 * n}
+    assert profiling.COUNTERS == {'uploads': 0, 'upload_bytes': 0,
+                                  'selection_table_builds': 0}
+    assert lengths and max(lengths) <= model.basis.num_species + 1
     info = device_constant.cache_info()
     assert (info.misses, info.hits) == (misses, misses)

@@ -2,7 +2,9 @@
 (``select_window(compact_impl=...)``) against the JAX package's on
 water(150), and the two 'mask' kernels' plain versions (``ops.cuda_select``
 ``window_mask``, ``left_pack_lanes``) against the JAX Pallas kernels
-(``make_window_mask``, ``make_left_pack_lanes``, interpret mode).
+(``make_window_mask``, ``make_left_pack_lanes``, interpret mode); and
+each compaction given the model's device tables against the same given
+host arrays.
 
 Every comparison here is exact: the masks, the packed lanes and counts,
 and the selections' integer fields, lane order included (the JAX suite
@@ -132,6 +134,45 @@ def test_mask_selection_equals_kernel_selection(port_selections):
     entry-major lane order, the same counts."""
     sels, _, _ = port_selections
     assert_selections_equal(sels['mask'], sels['kernel'])
+
+
+def _tensors(x, name='sel'):
+    """Every tensor of a selection by its dotted field name."""
+    if isinstance(x, torch.Tensor):
+        yield name, x
+    elif isinstance(x, tuple):
+        for f, v in zip(getattr(x, '_fields', range(len(x))), x):
+            yield from _tensors(v, f'{name}.{f}')
+    else:
+        assert x is None, name
+
+
+@pytest.mark.parametrize('impl', IMPLS)
+def test_device_tables_give_host_array_selection(system, impl):
+    """The model's device tables (grouping order and species ids, made
+    once per model and device) in place of the numpy ``grouping_order`` and
+    ``species`` give the same selection: every tensor field, each tier's
+    included, of the same dtype and bit for bit. For 'kernel' also
+    ``model.select``, which passes them itself."""
+    _, model, cl, pos, box, kw = system
+    want = dict(_tensors(select_window(cl, pos, box, compact_impl=impl,
+                                       need_shift_planes=True, **kw)))
+    order, species = model._device_arrays(pos.device)
+    sels = [select_window(cl, pos, box, compact_impl=impl,
+                          need_shift_planes=True,
+                          **dict(kw, species=species, grouping_order=order))]
+    if impl == 'kernel':
+        sels.append(model.select(pos, box, cl))
+    assert any(name.startswith('sel.tier.') for name in want)
+    for sel in sels:
+        got = dict(_tensors(sel))
+        assert got.keys() == want.keys()
+        for name, t in want.items():
+            assert got[name].dtype == t.dtype, name
+            if t.is_floating_point():           # bits, not values
+                bits = {4: torch.int32, 8: torch.int64}[t.element_size()]
+                got[name], t = (x.view(bits) for x in (got[name], t))
+            assert torch.equal(got[name], t), name
 
 
 def test_sort_selection_has_kernel_sets(system, port_selections):
