@@ -13,7 +13,12 @@
   ``profile_step --impl cfconv`` drive.
 * :class:`SchNetModel`: a SchNet potential, species embedding ->
   interaction blocks (atomwise dense, CFConv, atomwise dense + residual)
-  -> per-atom readout -> summed energy, forces by autograd.
+  -> per-atom readout -> summed energy, forces by autograd; over the O(N^2)
+  pair list (``energy``, ``energy_and_forces``) or, built with
+  ``from_atomic_numbers``, on the MD path of the cell list (``select``,
+  ``energy_and_forces_from_selection``, ``overflow_counts``: the entry
+  points of ``ANIModel`` that ``md.integrators.run_md_sticky_counts``
+  drives).
 
 Parameters are plain NamedTuples of tensors in the JAX ``[in, out]``
 layout (``params.schnet_params_from_jax`` carries JAX weights across).
@@ -21,18 +26,22 @@ layout (``params.schnet_params_from_jax`` carries JAX weights across).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import CFConvConfig
-from ..neighbors.cell_list import CellList
+from ..neighbors.cell_list import CellList, SlotSelection
 from ..neighbors.pairs import MaskedPairs
+from ..ops.aev_blocked import upload
 from ..ops.batched_nn import resolve_device
 from ..ops.cfconv import (CFConvParams, build_cfconv_neighbors, cfconv,
                           cfconv_from_payload, cfconv_masked, init_cfconv,
                           shifted_softplus)
+from ..utils.profiling import span
+from .ani import _with_forces
 
 Tensor = torch.Tensor
 
@@ -123,7 +132,13 @@ def periodic_stack(num_atoms: int, device=None, seed: int = 0
     return PeriodicStack(
         stack, params, CellList.create(box, cfg.cutoff, capacity=capacity),
         torch.tensor(pos, device=dev), torch.tensor(box, device=dev),
-        torch.tensor(x, device=dev), 2048 if num_atoms > 4096 else None)
+        torch.tensor(x, device=dev), conv_chunk(num_atoms))
+
+
+def conv_chunk(num_atoms: int) -> Optional[int]:
+    """Atom rows a chunk of the conv's plain forward takes: 2048 above 4096
+    atoms (bounding its [rows, K, width] temporaries), else one chunk."""
+    return 2048 if num_atoms > 4096 else None
 
 
 def periodic_stack_grads(w: PeriodicStack, plain: bool = False):
@@ -175,10 +190,28 @@ def _dense(p: DenseParams, x: Tensor) -> Tensor:
 @dataclasses.dataclass(frozen=True)
 class SchNetModel:
     """SchNet potential: embedding + L interaction blocks + atomwise
-    readout."""
+    readout.
+
+    Built with :meth:`from_atomic_numbers` it also holds its atoms'
+    species, and runs on the cell list's MD path."""
     config: CFConvConfig
     num_species: int
     num_interactions: int = 3
+    species: Tuple[int, ...] = ()
+
+    @classmethod
+    def from_atomic_numbers(cls, atomic_numbers, config: CFConvConfig,
+                            elements, num_interactions: int = 6
+                            ) -> 'SchNetModel':
+        """The model of one system: species ``elements.index(z)`` for each
+        atomic number."""
+        table = {int(z): k for k, z in enumerate(elements)}
+        missing = sorted({int(z) for z in atomic_numbers} - set(table))
+        if missing:
+            raise ValueError(f'atomic numbers {missing} are not among the '
+                             f'elements {list(elements)}')
+        species = tuple(table[int(z)] for z in atomic_numbers)
+        return cls(config, len(table), num_interactions, species)
 
     def init(self, generator: torch.Generator, device=None) -> SchNetParams:
         """Random parameters drawn with ``generator`` (fan-in scaled
@@ -205,20 +238,31 @@ class SchNetModel:
         return SchNetParams(embedding, blocks, dense(width, width // 2),
                             dense(width // 2, 1))
 
+    def _interactions(self, params: SchNetParams, x: Tensor, conv) -> Tensor:
+        """The interaction blocks on the embedded features ``x``;
+        ``conv(conv_params, v)`` is the CFConv over the neighbors."""
+        for block in params.interactions:
+            v = _dense(block.atomwise_in, x)
+            v = conv(block.conv, v)
+            v = shifted_softplus(_dense(block.atomwise_out1, v))
+            v = _dense(block.atomwise_out2, v)
+            x = x + v                      # residual interaction update
+        return x
+
+    @staticmethod
+    def _readout(params: SchNetParams, x: Tensor) -> Tensor:
+        h = shifted_softplus(_dense(params.readout1, x))
+        return torch.sum(_dense(params.readout2, h)[:, 0])
+
     def energy(self, params: SchNetParams, positions: Tensor,
                species: Tensor, box: Optional[Tensor] = None,
                max_num_pairs: int = -1) -> Tensor:
         neighbors = build_cfconv_neighbors(positions, self.config.cutoff, box,
                                            max_num_pairs)
-        x = params.embedding.index_select(0, species.long())
-        for block in params.interactions:
-            v = _dense(block.atomwise_in, x)
-            v = cfconv(block.conv, neighbors, v, self.config)
-            v = shifted_softplus(_dense(block.atomwise_out1, v))
-            v = _dense(block.atomwise_out2, v)
-            x = x + v                      # residual interaction update
-        h = shifted_softplus(_dense(params.readout1, x))
-        return torch.sum(_dense(params.readout2, h)[:, 0])
+        x = self._interactions(
+            params, params.embedding.index_select(0, species.long()),
+            lambda p, v: cfconv(p, neighbors, v, self.config))
+        return self._readout(params, x)
 
     def energy_and_forces(self, params: SchNetParams, positions: Tensor,
                           species: Tensor, box: Optional[Tensor] = None,
@@ -228,3 +272,78 @@ class SchNetModel:
             e = self.energy(params, pos, species, box, max_num_pairs)
             (grad,) = torch.autograd.grad(e, pos)
         return e.detach(), -grad
+
+    # ---- The cell list's MD path (a model from ``from_atomic_numbers``).
+
+    @functools.cached_property
+    def _on_device(self) -> dict:
+        """The species ids by device, uploaded once (a cache keyed on the
+        model would hash its N-element ``species`` on every lookup)."""
+        return {}
+
+    def _species_on(self, device: torch.device) -> Tensor:
+        device = torch.device(device)
+        if device not in self._on_device:
+            self._on_device[device] = upload(self.species, torch.int64,
+                                             device)
+        return self._on_device[device]
+
+    def create_cell_list(self, box, skin: float = 0.0) -> CellList:
+        """The cell list of the selection: cutoff + ``skin`` (a Verlet skin;
+        reselect before an atom moves ``skin / 2``), K = the neighbors a
+        sphere of that radius holds at the box's density plus 30 %, rounded
+        up to 128 (:func:`periodic_stack`'s rule); cells sized at that
+        density."""
+        box_np = np.asarray(box.detach().cpu() if isinstance(box, Tensor)
+                            else box, np.float64)
+        density = len(self.species) / abs(np.linalg.det(box_np))
+        radius = self.config.cutoff + skin
+        capacity = int(4 / 3 * np.pi * radius ** 3 * density * 1.3)
+        capacity = max(1, -(-capacity // 128)) * 128
+        return CellList.create(box_np, radius, capacity=capacity,
+                               density_estimate=density)
+
+    def select(self, positions: Tensor, box: Tensor,
+               cell_list: CellList) -> SlotSelection:
+        """Freeze a neighbor selection (every pair inside the cell list's
+        cutoff + skin, with the mirror the distance payload's adjoint
+        needs) for sticky stepping."""
+        with span('select'):
+            return cell_list.select(positions, box, build_mirror=True)
+
+    def energy_and_forces_from_selection(self, params: SchNetParams,
+                                         positions: Tensor, box: Tensor,
+                                         cell_list: CellList,
+                                         sel: SlotSelection
+                                         ) -> Tuple[Tensor, Tensor]:
+        """Energy and forces = -dE/dpositions against a frozen selection:
+        the scatter-free distance payload, the interaction blocks with
+        ``cfconv_masked`` (the B.6 kernel runs each conv's backward on the
+        card; lanes past the cutoff are masked there), the readout."""
+        def energy(pos):
+            with span('force.distances'):
+                d, idx, m = cell_list.payload_distances_from_selection(
+                    pos, box, sel)
+            with span('force.interaction'):
+                x = self._interactions(
+                    params, params.embedding.index_select(
+                        0, self._species_on(pos.device)),
+                    lambda p, v: cfconv_masked(p, d, m, idx, v, self.config,
+                                               conv_chunk(len(self.species))))
+            with span('force.readout'):
+                return self._readout(params, x)
+        return _with_forces(energy, positions)
+
+    def overflow_counts(self, positions: Tensor, box: Tensor,
+                        cell_list: CellList, sel: SlotSelection) -> dict:
+        """The true counts of the selection ``sel``'s capacities: neighbors
+        inside cutoff + skin of one atom, atoms in one cell."""
+        with span('counts'):
+            return {'max_neighbors': sel.max_neighbors,
+                    'max_cell_occupancy': sel.max_cell_occupancy}
+
+    @staticmethod
+    def capacities(cell_list: CellList) -> dict:
+        """The capacity each overflow count is held against."""
+        return {'max_neighbors': cell_list.capacity,
+                'max_cell_occupancy': cell_list.cell_capacity}

@@ -21,6 +21,7 @@ is counted 27 times and ``max_neighbors`` reports it as overflow.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -200,13 +201,9 @@ class CellList:
 
     def _stencil_slots(self, device) -> Tuple[Tensor, Tensor]:
         """([cells, 27] stencil, [cells, 27C] candidate slot ids) on
-        ``device``."""
-        c = self.cell_capacity
-        stencil = self._stencil()
-        cand = (stencil[:, :, None] * c + np.arange(c)).reshape(
-            self.num_cells, 27 * c).astype(np.int32)
-        return (torch.as_tensor(stencil, device=device),
-                torch.as_tensor(cand, device=device))
+        ``device``, uploaded once per cell list and device (a copy inside
+        the MD loop would synchronise it)."""
+        return _stencil_tables(self, torch.device(device))
 
     def cell_ids(self, positions: Tensor, box: Tensor) -> Tensor:
         """[N] int64 cell id of every atom, in the JAX package's order of
@@ -484,6 +481,18 @@ class CellList:
             torch.where(kept_valid, take, n).to(torch.int32),
             torch.max(counts),
             torch.tensor(n, dtype=torch.int32, device=positions.device))
+
+
+@functools.lru_cache(maxsize=16)
+def _stencil_tables(cell_list: CellList, device: torch.device
+                    ) -> Tuple[Tensor, Tensor]:
+    from ..ops.aev_blocked import upload   # (import cycle)
+    c = cell_list.cell_capacity
+    stencil = cell_list._stencil()
+    cand = (stencil[:, :, None] * c + np.arange(c)).reshape(
+        cell_list.num_cells, 27 * c).astype(np.int32)
+    return (upload(stencil, torch.int64, device),
+            upload(cand, torch.int32, device))
 
 
 def payload_to_half_pairs(payload: NeighborPayload,

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import CFConvConfig
 from ..geometry import cosine_cutoff
 from ..neighbors.pairs import MaskedPairs, neighbor_pairs_masked
+from ..utils.profiling import COUNTERS
 from .aev_blocked import device_constant
 from .batched_nn import resolve_device
 from .cuda_cfconv import _gather_rows, _pad_row, _row_chunks, payload_conv
@@ -176,7 +177,11 @@ def cfconv_masked(params: CFConvParams, distances: Tensor, mask: Tensor,
     scatter-free in its position adjoint), through the hand-written
     backward. The JAX ``bwd_impl`` selector is a TPU matter and is not
     carried: on the card the backward is the B.6 kernel; ``plain`` asks for
-    its plain version on any device."""
+    its plain version on any device. The lanes go into ``COUNTERS
+    ['cfconv_lanes']``; lanes of a Verlet skin (the selection's ``cutoff +
+    skin``) are masked here, since the cosine cutoff rises again past the
+    cutoff."""
+    COUNTERS['cfconv_lanes'] += distances.numel()
     n = inputs.shape[0]
     m = mask & (distances < config.cutoff)
     dist = torch.where(m, distances, 0.0)

@@ -14,8 +14,8 @@
 * :func:`span`: a named range of the port's own (``nnpops.<name>``) in
   the ``torch.profiler`` trace, on the profiler's clock beside the device
   activity; with no profiler running it does nothing.
-* :data:`COUNTERS`: the port's host-to-device uploads (count and bytes)
-  and builds of a model's device tables, always counted;
+* :data:`COUNTERS`: the port's host-to-device uploads (count and bytes),
+  builds of a model's device tables and CFConv lanes, always counted;
   :func:`reset_counters` zeroes them.
 """
 from __future__ import annotations
@@ -29,9 +29,12 @@ import numpy as np
 import torch
 
 # Since the process started or since :func:`reset_counters`: host-to-device
-# uploads made through ``ops.aev_blocked.upload``, and builds of a model's
-# device tables (``ANIModel._device_arrays``, once per model and device).
-COUNTERS = {'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0}
+# uploads made through ``ops.aev_blocked.upload``, builds of a model's
+# device tables (``ANIModel._device_arrays``, once per model and device),
+# and the lanes (rows x K, read from host shapes) of every convolution
+# through ``ops.cfconv.cfconv_masked``.
+COUNTERS = {'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
+            'cfconv_lanes': 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

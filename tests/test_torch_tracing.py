@@ -3,16 +3,19 @@
 a span is one shared no-op and never makes a ``record_function``; under
 ``torch.profiler`` a refresh block's trace holds the span tree, each
 sub-span inside its parent; and a selection's uploads and table builds
-are counted, a cold one's (every cache empty) and a warm one's (none)."""
+are counted, a cold one's (every cache empty) and a warm one's (none).
+SchNet's cell-list MD path, water(300): its span tree, its CFConv lanes
+and no upload in a warm block."""
 import dataclasses
 import json
 
 import pytest
 import torch
 
-from nnpops_tpu_torch.config import ANIBasis
+from nnpops_tpu_torch.config import ANIBasis, CFConvConfig
 from nnpops_tpu_torch.md import MDState, langevin_baoab, run_md_sticky_counts
 from nnpops_tpu_torch.models.ani import ANIModel, init_ani_params
+from nnpops_tpu_torch.models.schnet import SchNetModel
 from nnpops_tpu_torch.neighbors import window
 from nnpops_tpu_torch.ops.aev_blocked import device_constant
 from nnpops_tpu_torch.utils import make_water_box, profiling
@@ -140,7 +143,7 @@ def test_selection_uploads_counted(system, monkeypatch):
     misses = device_constant.cache_info().misses
     assert misses == 9
     assert cold == {'uploads': misses + 2 + 4 + 1, 'upload_bytes': 517380,
-                    'selection_table_builds': 1}
+                    'selection_table_builds': 1, 'cfconv_lanes': 0}
 
     lengths = []
 
@@ -152,7 +155,70 @@ def test_selection_uploads_counted(system, monkeypatch):
     profiling.reset_counters()
     model.select(pos, box, cl)
     assert profiling.COUNTERS == {'uploads': 0, 'upload_bytes': 0,
-                                  'selection_table_builds': 0}
+                                  'selection_table_builds': 0,
+                                  'cfconv_lanes': 0}
     assert lengths and max(lengths) <= model.basis.num_species + 1
     info = device_constant.cache_info()
     assert (info.misses, info.hits) == (misses, misses)
+
+
+SCHNET_FORCE = ('force.distances', 'force.interaction', 'force.readout',
+                'force.backward')
+
+
+@pytest.fixture(scope='module')
+def schnet_system():
+    water = make_water_box(300, seed=0)
+    config = CFConvConfig(width=16, num_gaussians=8, cutoff=6.0,
+                          gaussian_width=6.0 / 7)
+    model = SchNetModel.from_atomic_numbers(water.atomic_numbers, config,
+                                            [1, 8], num_interactions=6)
+    cl = model.create_cell_list(water.box, skin=SKIN)
+    params = model.init(torch.Generator().manual_seed(0), device='cpu')
+    return (model, cl, params, torch.tensor(water.positions),
+            torch.tensor(water.box))
+
+
+def _schnet_block(system):
+    model, cl, params, pos, box = system
+    zeros = torch.zeros_like(pos)
+    state = MDState(pos, zeros, zeros, zeros.new_zeros(()),
+                    torch.Generator().manual_seed(1),
+                    torch.zeros((), dtype=torch.int32))
+    run_md_sticky_counts(
+        lambda p: model.select(p, box, cl),
+        lambda sel, p: model.energy_and_forces_from_selection(
+            params, p, box, cl, sel),
+        lambda f: langevin_baoab(f, torch.ones(pos.shape[0]), 1e-4, 1.0,
+                                 0.0), state, 1, 1,
+        lambda sel, p: model.overflow_counts(p, box, cl, sel))
+
+
+def test_schnet_span_tree_and_lanes(schnet_system, tmp_path):
+    """A warm SchNet refresh block (a selection, two force calls, the
+    counts) uploads nothing and counts N x K lanes for each of the six
+    convolutions of each force call; profiled, its spans nest as the
+    window path's do, the force phases in order."""
+    model, cl, _, pos, _ = schnet_system
+    _schnet_block(schnet_system)
+    profiling.reset_counters()
+    _schnet_block(schnet_system)
+    assert profiling.COUNTERS == {
+        'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
+        'cfconv_lanes': 2 * 6 * pos.shape[0] * cl.capacity}
+    with profiling.trace(str(tmp_path)):
+        _schnet_block(schnet_system)
+    ranges = _ranges(tmp_path / 'trace.json')
+    assert {name: len(r) for name, r in ranges.items()} == {
+        'md.block': 1, 'select': 1, 'force': 2, 'force.distances': 2,
+        'force.interaction': 2, 'force.readout': 2, 'force.backward': 2,
+        'counts': 1}
+    block = ranges['md.block']
+    for name in ('select', 'force'):
+        assert all(_inside(r, block) for r in ranges[name]), name
+    assert not any(_inside(r, block) for r in ranges['counts'])
+    for name in SCHNET_FORCE:
+        assert all(_inside(r, ranges['force']) for r in ranges[name]), name
+    for k in range(2):
+        phases = [ranges[name][k] for name in SCHNET_FORCE]
+        assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
