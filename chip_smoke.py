@@ -60,15 +60,19 @@ ensemble, 8 random models made from a seed, full ANI-2x width, skin
 8. SchNet/CFConv, the JAX package's ``bench_cfconv_periodic`` chain at
    full width (``models.schnet.periodic_stack``: 26,010 atoms at density
    0.1, width 128, 50 Gaussians, 10 A cutoff, 6 layers, a 6x6x6 cell grid,
-   640 neighbor lanes, 2048-row chunks): (a) the CFConv backward kernel
-   against its plain version on the inputs of one layer's backward, timed,
-   its bound that of its three bf16 tensor-core passes (the old f32 bound
-   printed beside), two launches bitwise equal, plus one small call with
-   the tanh activation; (b) 1 warm-up and 2 timed
+   640 neighbor lanes, 2048-row chunks): (a) the fused CFConv forward
+   kernel against its plain version (normwise 1e-6) on the inputs of
+   layers 1 and 6, timed on layer 1's, its bound the filter products'
+   FFMAs at the f32 rate, two launches bitwise equal; the CFConv backward
+   kernel against its plain version on the inputs of one layer's backward,
+   timed, its bound that of its three bf16 tensor-core passes (the old f32
+   bound printed beside), two launches bitwise equal, plus one small call
+   with the tanh activation; (b) 1 warm-up and 2 timed
    iterations (select with mirror, distance payload, 6 layers, gradients
    of the sum with respect to positions, inputs and weights; ms/iteration,
-   no overflow, 6 kernel launches an iteration), then one iteration
-   against the same iteration through the plain backward; (c) the pair
+   no overflow, 6 launches of each kernel an iteration), then one
+   iteration against the same iteration through the plain forward and
+   backward, which launches neither kernel; (c) the pair
    path, which has no kernel: config 2 (``SchNetModel``, 21 atoms, 3
    interactions) and the O(N^2) harness (the stack over
    ``build_cfconv_neighbors`` at 1,000 atoms);
@@ -270,6 +274,8 @@ REPLACES = {
     'pme_window_fwd': 'nnpops_tpu/ops/pallas_pme.py:177',
     'pme_window_bwd': 'nnpops_tpu/ops/pallas_pme.py:199',
     'cfconv_bwd': 'nnpops_tpu/ops/pallas_cfconv.py:182',
+    'cfconv_fwd': 'none: the JAX package left the forward to XLA '
+                  '(nnpops_tpu/ops/cfconv.py _fwd_rows)',
     'window_mask': 'nnpops_tpu/ops/pallas_select.py:244',
     'left_pack_lanes': 'nnpops_tpu/ops/pallas_select.py:334',
     'cluster_radial_fwd': 'nnpops_tpu/ops/pallas_cluster.py:180',
@@ -280,6 +286,7 @@ REPLACES = {
 SOURCES = {
     'angular_aev': 'nnpops_tpu_torch/csrc/angular_aev.cu',
     'cfconv_bwd': 'nnpops_tpu_torch/csrc/cfconv_bwd.cu',
+    'cfconv_fwd': 'nnpops_tpu_torch/csrc/cfconv_fwd.cu',
     'cluster_radial': 'nnpops_tpu_torch/csrc/cluster_radial.cu',
     'pair_radial': 'nnpops_tpu_torch/csrc/pair_radial.cu',
     'window_mask': 'nnpops_tpu_torch/csrc/window_mask.cu',
@@ -1215,6 +1222,57 @@ def cfconv_bwd_check(label, args, cfg, chunk):
     return err
 
 
+def cfconv_fwd_check(label, args, cfg, chunk):
+    """The fused forward against its plain version on one recorded call of
+    ``cfconv_fwd(params, dist, mask, idx, x, config, ...)``: normwise 1e-6
+    of the reference's scale (both true f32)."""
+    params, dist, mask, idx, x = args
+    got = cuda_cfconv.cfconv_fwd_cuda(params, dist, mask, idx, x, cfg)
+    want = cuda_cfconv.conv_fwd_plain(params, dist, mask, idx, x, cfg, chunk)
+    check_normwise(f'{label} cfconv fwd', got, want, 1e-6)
+    err = max_abs(got, want)
+    print(f'{label} cfconv fwd rows {dist.shape[0]} lanes {dist.shape[1]}: '
+          f'max|d out| {err:.3g} (max {float(want.abs().max()):.3g}, '
+          f'normwise {err / float(want.abs().max()):.3g})')
+    return err
+
+
+def cfconv_fwd_entry(calls, cfg, chunk):
+    """The fused forward kernel on the recorded forwards of the stack's 6
+    layers: checked on layers 1 and 6, timed on layer 1's inputs. Bound:
+    the filter products, 2 (G W + W^2) operations a valid pair, at the f32
+    FFMA rate (the configuration computes in true f32), or the bytes."""
+    rec = [(tuple(a.detach() for a in c[0][0]),)
+           + tuple(a.detach() for a in c[0][1:5]) for c in calls]
+    err = max(cfconv_fwd_check('26k layer 1', rec[0], cfg, chunk),
+              cfconv_fwd_check('26k layer 6', rec[-1], cfg, chunk))
+    params, dist, mask, idx, x = rec[0]
+    del rec
+    pairs = int(mask.sum())
+    n, k = dist.shape
+    wd, ng = cfg.width, cfg.num_gaussians
+    # dist, mask, idx, x and the weights read once, out written once.
+    nbytes = n * k * (4 + 1 + 4) + 2 * 4 * n * wd \
+        + 4 * (ng * wd + wd + wd * wd + wd + ng)
+    ops = pairs * 2 * (ng * wd + wd * wd)
+    kernel = lambda: cuda_cfconv.cfconv_fwd_cuda(  # noqa: E731
+        params, dist, mask, idx, x, cfg)
+    e = entry('cfconv_fwd', 'cfconv_fwd', err, kernel,
+              lambda: cuda_cfconv.conv_fwd_plain(params, dist, mask, idx, x,
+                                                 cfg, chunk),
+              nbytes, ops, F32_OPS_PER_S, calls=2)
+    deterministic('cfconv_fwd', [kernel()], [kernel()])
+    print(f"cfconv_fwd: rows {n} lanes {k}, valid pairs {pairs}: kernel "
+          f"{e['ms']:.4f} ms (CUDA graph; eager {e['event_ms']:.4f} ms), "
+          f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+          f"({e['bound_by']}: {ops} FFMA operations at "
+          f"{F32_OPS_PER_S:.3g}/s, {nbytes} bytes), "
+          f"{100 * e['bound_ms'] / e['ms']:.1f} % of it "
+          f"({ops / e['ms'] / 1e9:.1f} TFLOP/s); library none; max|err| "
+          f"{err:.3g}")
+    return e
+
+
 def cfconv_phase():
     """Phase 8: the SchNet/CFConv path. (a) the CFConv backward kernel (B.6)
     against its plain version on one layer's inputs of the 26,010-atom
@@ -1222,9 +1280,11 @@ def cfconv_phase():
     stack (``models.schnet.periodic_stack``: select with mirror, distance
     payload, 6 layers, gradients of the sum with respect to positions,
     inputs and weights), 1 warm-up and 2 timed iterations, then one
-    iteration against the same iteration through the plain backward; (c)
-    the pair path, which has no kernel: config 2 and the O(N^2) harness.
-    Returns the kernel's entry with its launches from (b)."""
+    iteration against the same iteration through the plain forward and
+    backward; (c) the pair path, which has no kernel: config 2 and the
+    O(N^2) harness. Returns the two kernels' entries (the forward's first)
+    with their launches from (b). The forward kernel is checked and timed
+    in (a) on the inputs the warm-up recorded."""
     w = schnet_mod.periodic_stack(LARGE_MOLECULES * 3, device=DEV)
     cfg = w.stack.config
     cl = w.cell_list
@@ -1236,12 +1296,17 @@ def cfconv_phase():
     if cl.ncells != (6, 6, 6) or cl.capacity != 640:
         raise AssertionError('cfconv 26k: expected a 6x6x6 grid, K = 640')
 
-    # (b, warm-up) One iteration, recording the kernel's calls.
-    calls = []
-    with recording(cuda_cfconv, 'cfconv_bwd', calls):
+    # (b, warm-up) One iteration, recording the kernels' calls.
+    calls, fwd_calls = [], []
+    with recording(cuda_cfconv, 'cfconv_bwd', calls), \
+            recording(cuda_cfconv, 'cfconv_fwd', fwd_calls):
         schnet_mod.periodic_stack_grads(w)
-    if len(calls) != w.stack.num_layers:
-        raise AssertionError(f'cfconv_bwd called {len(calls)} times')
+    if len(calls) != w.stack.num_layers or \
+            len(fwd_calls) != w.stack.num_layers:
+        raise AssertionError(f'cfconv_bwd called {len(calls)} times, '
+                             f'cfconv_fwd {len(fwd_calls)} times')
+    fe = cfconv_fwd_entry(fwd_calls, cfg, w.chunk_size)
+    del fwd_calls
 
     # (a) B.6 on the last layer's backward inputs (the first call).
     # Detached: the saved inputs require grad, and the plain version would
@@ -1321,13 +1386,17 @@ def cfconv_phase():
     if tuple(d_pos.shape) != tuple(w.positions.shape) or \
             tuple(d_x.shape) != tuple(w.inputs.shape):
         raise AssertionError('cfconv 26k: gradient shapes')
-    require_launches('cfconv', launches,
-                     {'cfconv_bwd': CFCONV_ITERS * w.stack.num_layers})
+    need = CFCONV_ITERS * w.stack.num_layers
+    if launches['cfconv_bwd'] != need or launches['cfconv_fwd'] != need:
+        raise AssertionError(f'cfconv 26k: {launches["cfconv_fwd"]} forward '
+                             f'and {launches["cfconv_bwd"]} backward '
+                             f'launches, expected {need} each')
     e['launches'] = launches['cfconv_bwd']
-    before = launches['cfconv_bwd']
+    fe['launches'] = launches['cfconv_fwd']
+    before = dict(_kernels.LAUNCHES)
     p_value, p_pos, p_x, p_dw, _ = schnet_mod.periodic_stack_grads(w, True)
-    if _kernels.LAUNCHES['cfconv_bwd'] != before:
-        raise AssertionError('the plain iteration launched the kernel')
+    if dict(_kernels.LAUNCHES) != before:
+        raise AssertionError('the plain iteration launched a kernel')
     check_close('cfconv stack value', value, p_value, rtol=1e-5, atol=0.0)
     check_normwise('cfconv stack d_positions', d_pos, p_pos, 1e-3)
     check_normwise('cfconv stack d_inputs', d_x, p_x, 1e-3)
@@ -1377,7 +1446,7 @@ def cfconv_phase():
     print(f'cfconv O(N^2) harness ({n_pair} atoms, 6 layers, build + '
           f'backprop): {cuda_ms(harness, iters=3, warmup=1):.3f} ms/iteration'
           f' (CUDA events), value {float(value):.4f}')
-    return e
+    return {'cfconv_fwd': fe, 'cfconv_bwd': e}
 
 
 # ---------------------------------------------------------------------------
@@ -2351,7 +2420,7 @@ def main():
 
     window_large_phase(basis, params)
     kernels['pme_window_fwd'], kernels['pme_window_bwd'] = config5_phase(basis)
-    kernels['cfconv_bwd'] = cfconv_phase()
+    kernels.update(cfconv_phase())
     kernels.update(opt_in_phase(basis, params))
     dense_payload_phase(basis, smi[0])
     parallel_phase(basis, smi[0])

@@ -23,14 +23,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / 'csrc'
 BUILD_DIR = Path(__file__).parent / '_build'
-SOURCES = ('angular_aev.cu', 'cfconv_bwd.cu', 'cluster_radial.cu',
-           'fused_nn.cu', 'left_pack.cu', 'pair_radial.cu', 'pme_window.cu',
-           'window_mask.cu', 'window_radial.cu')
+SOURCES = ('angular_aev.cu', 'cfconv_bwd.cu', 'cfconv_fwd.cu',
+           'cluster_radial.cu', 'fused_nn.cu', 'left_pack.cu',
+           'pair_radial.cu', 'pme_window.cu', 'window_mask.cu',
+           'window_radial.cu')
 HEADERS = ('window_walk.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
 LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0, 'cfconv_bwd': 0,
+            'cfconv_fwd': 0,
             'cluster_radial_fwd': 0, 'cluster_radial_bwd': 0,
             'fused_nn_fwd_layer1': 0, 'fused_nn_fwd_hidden': 0,
             'fused_nn_fwdgrad_layer1': 0, 'fused_nn_fwdgrad_hidden': 0,
@@ -56,6 +58,9 @@ _SIGNATURES = {
     # dist, mask, idx, x, g, w1, b1, w2, b2, centers, d_dist, d_x, part, dw,
     # n, k, width, g, nblocks, tanh, inv_gw, pi_rc, stream
     'cfconv_bwd': (_P,) * 14 + (_I,) * 6 + (_D, _D, _P),
+    # dist, mask, idx, x, w1, b1, w2, b2, centers, out, n, k, width, g,
+    # nblocks, tanh, inv_gw, pi_rc, stream
+    'cfconv_fwd': (_P,) * 10 + (_I,) * 6 + (_D, _D, _P),
     # jx, jy, jz, centers, out, ncl, cl, lanes, npres, lane_lo, lane_hi
     # (host arrays), self_off, n_r, eta, rs (host), rc, scale, stream
     'cluster_radial_fwd': (_P,) * 5 + (_I,) * 4 + (_P,) * 2 + (_I,) * 2

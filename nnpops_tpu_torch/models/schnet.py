@@ -136,8 +136,9 @@ def periodic_stack(num_atoms: int, device=None, seed: int = 0
 
 
 def conv_chunk(num_atoms: int) -> Optional[int]:
-    """Atom rows a chunk of the conv's plain forward takes: 2048 above 4096
-    atoms (bounding its [rows, K, width] temporaries), else one chunk."""
+    """Atom rows a chunk of the conv's plain forward and backward take
+    (the card's kernels take all rows at once): 2048 above 4096 atoms
+    (bounding their [rows, K, width] temporaries), else one chunk."""
     return 2048 if num_atoms > 4096 else None
 
 
@@ -146,7 +147,7 @@ def periodic_stack_grads(w: PeriodicStack, plain: bool = False):
     scatter-free distance payload, the stack, and the gradient of the sum
     of its output. Returns ``(value, d_positions, d_inputs, weight
     gradients per layer, selection)``; ``plain`` runs every layer's
-    backward through its plain version."""
+    forward and backward through their plain versions."""
     with torch.enable_grad():
         pos = w.positions.detach().requires_grad_(True)
         x = w.inputs.detach().requires_grad_(True)

@@ -15,8 +15,10 @@ Two neighbor forms:
   ``(distances, indices, mask)`` triple of
   ``CellList.payload_distances_from_selection``, the production path for
   large periodic boxes): :func:`cfconv_from_payload` and
-  :func:`cfconv_masked`, through ``ops.cuda_cfconv.PayloadConv`` with the
-  hand-written backward (the B.6 kernel on the card).
+  :func:`cfconv_masked`, through ``ops.cuda_cfconv.PayloadConv``: on the
+  card its forward is the fused kernel (``csrc/cfconv_fwd.cu``, one
+  float32 pass over each row's valid lanes) and its backward the
+  hand-written B.6 kernel; on the CPU both are plain PyTorch.
 
 Weights keep the JAX ``[in, out]`` layout.
 """
@@ -153,9 +155,10 @@ def cfconv_from_payload(params: CFConvParams, payload, inputs: Tensor,
     ``chunk_size``: process atom rows in blocks, bounding the [rows, K,
     width] filter tensors. ``compute_dtype=torch.bfloat16``: bf16 operands
     of the two filter products, f32 accumulation. ``custom_adjoint``
-    (default True): the hand-written backward (``ops.cuda_cfconv``); False
-    is plain autograd through the recomputed chunk body (the oracle of the
-    adjoint tests; ``compute_dtype`` applies to the hand-written path only,
+    (default True): the kernels' path (``ops.cuda_cfconv``: on the card
+    the fused forward, which takes only f32, and the hand-written backward);
+    False is plain autograd through the recomputed chunk body (the oracle of
+    the adjoint tests; ``compute_dtype`` applies to the kernels' path only,
     as in the JAX package)."""
     n = payload.distances.shape[0]
     # Re-mask by the layer cutoff: the payload may carry a Verlet skin, and
@@ -174,13 +177,13 @@ def cfconv_masked(params: CFConvParams, distances: Tensor, mask: Tensor,
                   plain: bool = False) -> Tensor:
     """CFConv over an explicit (distances, mask, indices) neighbor triple
     (``CellList.payload_distances_from_selection``: the production path,
-    scatter-free in its position adjoint), through the hand-written
-    backward. The JAX ``bwd_impl`` selector is a TPU matter and is not
-    carried: on the card the backward is the B.6 kernel; ``plain`` asks for
-    its plain version on any device. The lanes go into ``COUNTERS
-    ['cfconv_lanes']``; lanes of a Verlet skin (the selection's ``cutoff +
-    skin``) are masked here, since the cosine cutoff rises again past the
-    cutoff."""
+    scatter-free in its position adjoint), through the kernels. The JAX
+    ``bwd_impl`` selector is a TPU matter and is not carried: on the card
+    the forward is the fused kernel and the backward the B.6 kernel;
+    ``plain`` asks for both plain versions on any device. The lanes go
+    into ``COUNTERS['cfconv_lanes']``; lanes of a Verlet skin (the
+    selection's ``cutoff + skin``) are masked here, since the cosine
+    cutoff rises again past the cutoff."""
     COUNTERS['cfconv_lanes'] += distances.numel()
     n = inputs.shape[0]
     m = mask & (distances < config.cutoff)

@@ -1,5 +1,6 @@
-"""The CFConv backward kernel (``csrc/cfconv_bwd.cu``, B.6), its wrapper and
-plain PyTorch version, and the payload conv's autograd Function (port of
+"""The CFConv kernels (``csrc/cfconv_fwd.cu``, the fused forward, and
+``csrc/cfconv_bwd.cu``, B.6, the backward), their wrappers and plain
+PyTorch versions, and the payload conv's autograd Function (port of
 ``nnpops_tpu/ops/cfconv.py`` ``_make_payload_conv`` and of
 ``nnpops_tpu/ops/pallas_cfconv.py``).
 
@@ -8,30 +9,34 @@ zeros on masked lanes), ``mask [N, K]`` bool and ``idx [N, K]`` int32
 (``N`` on masked lanes), inputs ``x [N, W]``, filter weights ``w1 [G, W]``,
 ``b1 [W]``, ``w2 [W, W]``, ``b2 [W]`` (the JAX ``[in, out]`` layout):
 
-* forward (plain PyTorch, chunked over atom rows as the JAX ``_fwd_rows``;
-  the two filter products go to ``torch.matmul`` in true f32, as JAX left
-  them to XLA): ``out[i] = sum_l y2[i, l] * x[idx[i, l]]`` with the filter
-  ``y2 = (act(gauss(d) w1 + b1) w2 + b2) * fc(d)``;
+* forward: ``out[i] = sum_l y2[i, l] * x[idx[i, l]]`` with the filter
+  ``y2 = (act(gauss(d) w1 + b1) w2 + b2) * fc(d)``. Its plain version
+  (:func:`conv_fwd_plain`) is chunked over atom rows as the JAX
+  ``_fwd_rows`` and gives the two filter products to ``torch.matmul`` in
+  true f32, as JAX left them to XLA; the kernel computes the same in one
+  float32 pass over each row's valid lanes, its products as FFMA;
 * backward, recomputing the filter: the four weight gradients, the
   distance cotangent and the input-gradient rows by self-adjointness
   (``d_x[i] = sum_l y2[i, l] * g[idx[i, l]]``, exact when the directed
   list holds both directions of every pair).
 
-Dispatch of the backward: a CPU tensor runs :func:`cfconv_bwd_plain`, the
-JAX ``_bwd_rows`` chunk algebra; a CUDA tensor launches the kernel, once
-over all N rows, or raises. Validity is the mask (the JAX default XLA
-backward), not the Pallas kernel's ``dist > 0``: the two differ only for
-coincident atoms. The JAX package's ``bwd_impl`` selector and the Pallas
-constraints behind its silent fallback (K a multiple of 128, rows of 16)
-are TPU matters: the kernel takes any K and row count.
+Dispatch, both directions: a CPU tensor runs the plain version (the
+backward's is the JAX ``_bwd_rows`` chunk algebra); a CUDA tensor launches
+the kernel, once over all N rows whatever ``chunk_size``, or raises.
+Validity is the mask (the JAX default XLA backward), not the Pallas
+kernel's ``dist > 0``: the two differ only for coincident atoms. The JAX
+package's ``bwd_impl`` selector and the Pallas constraints behind its
+silent fallback (K a multiple of 128, rows of 16) are TPU matters: the
+kernels take any K and row count.
 
 ``compute_dtype=torch.bfloat16`` rounds the filter products' operands to
-bf16 with f32 accumulation (the JAX option) in the forward and the plain
-backward. The kernel runs its six products on the tensor cores in three
-bf16 passes (``hi.hi + hi.lo + lo.hi`` of ``hi = bf16(a)``, ``lo =
-bf16(a - hi)``, f32 accumulation), about 2^-16 relative per product where
-the Pallas kernel computes in f32; ``dtype=SPLIT3`` makes the plain
-version emulate that arithmetic (for tests).
+bf16 with f32 accumulation (the JAX option) in the plain forward and the
+plain backward; the forward kernel takes only ``None`` (true f32). The
+backward kernel runs its six products on the tensor cores in three bf16
+passes (``hi.hi + hi.lo + lo.hi`` of ``hi = bf16(a)``, ``lo = bf16(a -
+hi)``, f32 accumulation), about 2^-16 relative per product where the
+Pallas kernel computes in f32; ``dtype=SPLIT3`` makes the plain version
+emulate that arithmetic (for tests).
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ from .aev_blocked import device_constant
 Tensor = torch.Tensor
 
 _LN2 = float(np.log(2.0))
-MAX_GAUSSIANS = 64            # csrc/cfconv_bwd.cu limits
+MAX_GAUSSIANS = 64            # the kernels' limits (csrc/cfconv_*.cu)
 WIDTHS = (32, 64, 128)
 
 
@@ -172,40 +177,94 @@ def cfconv_bwd_plain(params, dist: Tensor, mask: Tensor, idx: Tensor,
 
 
 def check_kernel_config(config: CFConvConfig) -> None:
-    """Raise unless the kernel takes this width and Gaussian count."""
+    """Raise unless the kernels take this width and Gaussian count."""
     if config.width not in WIDTHS or not 1 <= config.num_gaussians <= MAX_GAUSSIANS:
-        raise ValueError(f'the CFConv backward kernel takes width in {WIDTHS}'
-                         f' and 1..{MAX_GAUSSIANS} Gaussians, got width '
+        raise ValueError(f'the CFConv kernels take width in {WIDTHS} and '
+                         f'1..{MAX_GAUSSIANS} Gaussians, got width '
                          f'{config.width}, {config.num_gaussians} Gaussians')
 
 
+def _check_inputs(params, dist, mask, idx, x, config, *rows) -> None:
+    """Raise unless the kernels take these inputs (``rows``: more [N, W]
+    f32 tensors beside ``x``), on the current CUDA device."""
+    check_kernel_config(config)
+    n, k = dist.shape
+    wd, ng = config.width, config.num_gaussians
+    shapes = ((dist, (n, k), torch.float32), (mask, (n, k), torch.bool),
+              (idx, (n, k), torch.int32),
+              *((t, (n, wd), torch.float32) for t in (x, *rows)),
+              *zip(params, ((ng, wd), (wd,), (wd, wd), (wd,)),
+                   (torch.float32,) * 4))
+    for t, shape, dtype in shapes:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f'expected {dtype} {shape}, got {t.dtype} '
+                             f'{tuple(t.shape)}')
+    _kernels.require_cuda(*(t for t, _, _ in shapes))
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t``, copied if it does not start on 16 bytes (the kernels gather
+    its rows in 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _num_blocks(device, n: int) -> int:
-    """One block per SM (fixed for a device, so the weight-gradient sum
-    order is too)."""
+    """One block per SM (fixed for a device, so the backward's
+    weight-gradient sum order is too)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(n, sms))
+
+
+def cfconv_fwd_cuda(params, dist: Tensor, mask: Tensor, idx: Tensor,
+                    x: Tensor, config: CFConvConfig) -> Tensor:
+    """Launch the fused forward kernel over all rows: ``out [N, W]``."""
+    _check_inputs(params, dist, mask, idx, x, config)
+    w1, b1, w2, b2 = params
+    n, k = dist.shape
+    x = _aligned(x)
+    dev = dist.device
+    centers = device_constant(tuple(float(c) for c in
+                                    config.gaussian_positions),
+                              torch.float32, dev)
+    out = torch.empty_like(x)
+    _kernels.launch(
+        'cfconv_fwd', dist.data_ptr(), mask.data_ptr(), idx.data_ptr(),
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), centers.data_ptr(), out.data_ptr(), n, k,
+        config.width, config.num_gaussians, _num_blocks(dev, n),
+        int(config.activation == 'tanh'), 1.0 / config.gaussian_width,
+        math.pi / config.cutoff, _kernels.stream_handle(dev))
+    return out
+
+
+def cfconv_fwd(params, dist: Tensor, mask: Tensor, idx: Tensor, x: Tensor,
+               config: CFConvConfig, chunk_size: Optional[int] = None,
+               dtype=None) -> Tensor:
+    """The conv's value: the fused kernel on a CUDA tensor (one launch over
+    all rows, true f32), :func:`conv_fwd_plain` on a CPU tensor."""
+    if dist.device.type == 'cpu':
+        return conv_fwd_plain(params, dist, mask, idx, x, config, chunk_size,
+                              dtype)
+    if dist.device.type != 'cuda':
+        raise ValueError(f'no CFConv forward kernel for device {dist.device}')
+    if dtype is not None:
+        raise ValueError(f'the CFConv forward kernel computes in float32; '
+                         f'got compute dtype {dtype}')
+    return cfconv_fwd_cuda(tuple(p.contiguous() for p in params),
+                           dist.contiguous(), mask.contiguous(),
+                           idx.to(torch.int32).contiguous(), x.contiguous(),
+                           config)
 
 
 def cfconv_bwd_cuda(params, dist: Tensor, mask: Tensor, idx: Tensor,
                     x: Tensor, g: Tensor, config: CFConvConfig):
     """Launch the kernel (and its partial-sum reduction) over all rows:
     ``((dW1, db1, dW2, db2), d_dist, d_x)``."""
-    check_kernel_config(config)
+    _check_inputs(params, dist, mask, idx, x, config, g)
     w1, b1, w2, b2 = params
     n, k = dist.shape
     wd, ng = config.width, config.num_gaussians
-    shapes = ((dist, (n, k), torch.float32), (mask, (n, k), torch.bool),
-              (idx, (n, k), torch.int32), (x, (n, wd), torch.float32),
-              (g, (n, wd), torch.float32), (w1, (ng, wd), torch.float32),
-              (b1, (wd,), torch.float32), (w2, (wd, wd), torch.float32),
-              (b2, (wd,), torch.float32))
-    for t, shape, dtype in shapes:
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f'expected {dtype} {shape}, got {t.dtype} '
-                             f'{tuple(t.shape)}')
-    _kernels.require_cuda(*(t for t, _, _ in shapes))
-    # The kernel gathers rows of x and g in 16-byte copies.
-    x, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, g))
+    x, g = _aligned(x), _aligned(g)
     dev = dist.device
     centers = device_constant(tuple(float(c) for c in
                                     config.gaussian_positions),
@@ -248,10 +307,10 @@ def cfconv_bwd(params, dist: Tensor, mask: Tensor, idx: Tensor, x: Tensor,
 
 
 class PayloadConv(torch.autograd.Function):
-    """The payload conv: plain chunked forward, recompute-based backward
-    through :func:`cfconv_bwd` (only the inputs are saved). Returns
-    cotangents for w1/b1/w2/b2, the distances and the inputs. First
-    order."""
+    """The payload conv: forward through :func:`cfconv_fwd`, recompute-based
+    backward through :func:`cfconv_bwd` (only the inputs are saved); with
+    ``plain``, both directions' plain versions. Returns cotangents for
+    w1/b1/w2/b2, the distances and the inputs. First order."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, dist, mask, idx, x, config, chunk_size,
@@ -260,8 +319,8 @@ class PayloadConv(torch.autograd.Function):
         ctx.save_for_backward(w1, b1, w2, b2, dist, mask, idx, x)
         ctx.spec = (config, chunk_size, dtype)
         ctx.plain = plain
-        return conv_fwd_plain(params, dist, mask, idx, x, config, chunk_size,
-                              dtype)
+        fwd = conv_fwd_plain if plain else cfconv_fwd
+        return fwd(params, dist, mask, idx, x, config, chunk_size, dtype)
 
     @staticmethod
     @once_differentiable
@@ -276,10 +335,10 @@ class PayloadConv(torch.autograd.Function):
 def payload_conv(params, dist: Tensor, mask: Tensor, idx: Tensor, x: Tensor,
                  config: CFConvConfig, chunk_size: Optional[int] = None,
                  dtype=None, plain: bool = False) -> Tensor:
-    """The payload conv with the hand-written backward (see the module
-    doc); ``params`` is ``(w1, b1, w2, b2)``. ``plain`` runs the backward's
-    plain version on any device (the reference a run through the kernel is
-    held against on the card)."""
+    """The payload conv through the kernels (see the module doc); ``params``
+    is ``(w1, b1, w2, b2)``. ``plain`` runs both directions' plain versions
+    on any device (the reference a run through the kernels is held against
+    on the card)."""
     w1, b1, w2, b2 = params
     return PayloadConv.apply(w1, b1, w2, b2, dist, mask, idx, x, config,
                              chunk_size, dtype, plain)

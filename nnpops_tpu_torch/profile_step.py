@@ -64,7 +64,7 @@ and under ``torch.profiler`` its device kernel time, device kernels and
 busy share (device time over the median event time), then each part
 alone, CUDA-event time and device time and kernels under the profiler:
 the selection with the mirror, the distance payload, the 6 forwards
-(no grad), the 6 backward kernels (B.6) on the inputs recorded from an
+(the fused forward kernel, no grad), the 6 backward kernels (B.6) on the inputs recorded from an
 iteration, and the mirror position adjoint (a random cotangent on the
 valid lanes).
 

@@ -315,6 +315,42 @@ def test_cpu_backward_launches_no_kernel():
         cuda_cfconv.check_kernel_config(tcfg)
 
 
+def test_cpu_payload_conv_takes_plain_forward():
+    """On CPU tensors ``PayloadConv`` runs ``conv_fwd_plain`` and
+    ``cfconv_bwd_plain`` (bitwise their values and gradients, kernel or
+    plain flag alike, no launch); the forward kernel's wrapper rejects the
+    widths and Gaussian counts the kernels do not take."""
+    tcfg, _, jparams, dist, mask, idx, x, g = tiny_backward_inputs()
+    args = (t(dist), t(mask), t(idx))
+    before = dict(_kernels.LAUNCHES)
+    want = cuda_cfconv.conv_fwd_plain(tuple(t(a) for a in jparams), *args,
+                                      t(x), tcfg, 4)
+    (dw1, db1, dw2, db2), d_dist, d_x = cuda_cfconv.cfconv_bwd_plain(
+        tuple(t(a) for a in jparams), *args, t(x), t(g), tcfg, 4)
+    assert torch.equal(cuda_cfconv.cfconv_fwd(
+        tuple(t(a) for a in jparams), *args, t(x), tcfg, 4), want)
+    for plain in (False, True):
+        prm = tuple(t(a).requires_grad_(True) for a in jparams)
+        dd = t(dist).requires_grad_(True)
+        xx = t(x).requires_grad_(True)
+        out = cuda_cfconv.payload_conv(prm, dd, *args[1:], xx, tcfg, 4,
+                                       plain=plain)
+        assert torch.equal(out, want)
+        got = torch.autograd.grad(out, (*prm, dd, xx), t(g))
+        for a, b in zip(got, (dw1, db1, dw2, db2, d_dist, d_x)):
+            assert torch.equal(a, b)
+    assert dict(_kernels.LAUNCHES) == before
+    for bad in (dict(width=48, num_gaussians=8),
+                dict(width=16, num_gaussians=8),
+                dict(width=128, num_gaussians=65)):
+        cfg = CFConvConfig(cutoff=4.0, gaussian_width=0.5, **bad)
+        w, ng = bad['width'], bad['num_gaussians']
+        prm = (torch.zeros(ng, w), torch.zeros(w), torch.zeros(w, w),
+               torch.zeros(w))
+        with pytest.raises(ValueError, match='width'):
+            cuda_cfconv.cfconv_fwd_cuda(prm, *args, torch.zeros(16, w), cfg)
+
+
 def normwise(a, b):
     b = np.asarray(b)
     return float(np.abs(np.asarray(a) - b).max() / np.abs(b).max())

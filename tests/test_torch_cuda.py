@@ -1051,10 +1051,48 @@ def test_cfconv_bwd_kernel_tile_edges(dev):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize('width,num_gaussians', [(32, 7), (64, 64),
+                                                  (128, 50)])
+@pytest.mark.parametrize('activation', ['ssp', 'tanh'])
+def test_cfconv_fwd_kernel_matches_plain(dev, activation, width,
+                                         num_gaussians):
+    """The fused forward against ``conv_fwd_plain`` in float32 at K = 640,
+    300 rows: normwise 1e-6 over all rows and row by row on rows with 0,
+    1, 63, 64, 65 and 129 valid lanes (the 64-pair tiles' edges; the other
+    rows cross six tiles), masked lanes carrying nonzero distances and
+    real neighbors; the empty row exactly 0; one launch; two launches
+    bitwise equal."""
+    cfg = cfconv_config(activation, width=width, num_gaussians=num_gaussians)
+    params, (dist, mask, idx, x, _) = cfconv_inputs(
+        dev, cfg, 640, n=300, seed=3, row_counts=(0, 1, 63, 64, 65, 129))
+    rng = np.random.RandomState(4)
+    dist = torch.where(mask, dist, torch.tensor(
+        rng.uniform(0.5, 9.9, mask.shape), dtype=torch.float32).to(dev))
+    idx = torch.where(mask, idx, torch.tensor(
+        rng.randint(0, 300, mask.shape), dtype=torch.int32).to(dev))
+    before = _kernels.LAUNCHES['cfconv_fwd']
+    got = cuda_cfconv.cfconv_fwd(params, dist, mask, idx, x, cfg)
+    assert _kernels.LAUNCHES['cfconv_fwd'] == before + 1
+    want = cuda_cfconv.conv_fwd_plain(params, dist, mask, idx, x, cfg)
+    assert_normwise(got, want, 1e-6)
+    assert not bool(got[0].any())
+    for r in range(1, 6):
+        assert_normwise(got[r], want[r], 1e-6)
+    assert torch.equal(cuda_cfconv.cfconv_fwd(params, dist, mask, idx, x,
+                                              cfg), got)
+    with pytest.raises(ValueError, match='width'):
+        cuda_cfconv.cfconv_fwd(params, dist, mask, idx, x,
+                               cfconv_config(width=48))
+    with pytest.raises(ValueError, match='float32'):
+        cuda_cfconv.cfconv_fwd(params, dist, mask, idx, x, cfg,
+                               dtype=torch.bfloat16)
+
+
 def test_cfconv_stack_kernel_matches_plain(dev):
     """A chunked 2-layer stack over the scatter-free distance payload on
     water(300) at width 128 and a 6 A cutoff: value, position, input and
-    weight gradients through the kernel against the plain backward."""
+    weight gradients through the kernels (one forward and one backward
+    launch a layer) against the plain forward and backward."""
     water = make_water_box(300, seed=4)
     cfg = CFConvConfig(width=128, num_gaussians=50, cutoff=6.0,
                        gaussian_width=6.0 / 49)
@@ -1081,8 +1119,10 @@ def test_cfconv_stack_kernel_matches_plain(dev):
     _kernels.reset_launch_counts()
     got = run(False)
     assert _kernels.LAUNCHES['cfconv_bwd'] == 2
+    assert _kernels.LAUNCHES['cfconv_fwd'] == 2
     want = run(True)
     assert _kernels.LAUNCHES['cfconv_bwd'] == 2
+    assert _kernels.LAUNCHES['cfconv_fwd'] == 2
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
     for a, b in zip(got[1:], want[1:]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
