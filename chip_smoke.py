@@ -1,211 +1,91 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Per-kernel table of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's ANI-2x MD force step (``nnpops_tpu_torch``, bf16 fused
-ensemble, 8 random models made from a seed, full ANI-2x width, skin
-0.25 A, refresh 8, margin 1.15) on periodic water boxes:
+For every kernel of ``nnpops_tpu_torch._kernels.LAUNCHES`` this script
+records the kernel's inputs from the path that launches it (one selection
+and one step, through ``utils.profiling.recording``), holds the kernel
+against its plain PyTorch version on them at the gates of the card tests,
+checks two launches bitwise equal, and times both: the kernel as 20 calls
+captured in a CUDA graph and replayed 5 times between CUDA events (2 calls
+for the CFConv kernels, whose call takes milliseconds), the plain version
+as eager calls between CUDA events. Beside the times it prints the
+kernel's bound, the larger of its bytes over the memory rate and its
+operations over the peak of their type (FP32, SFU or bf16 tensor cores;
+the rates of ``mdbench/peaks.json``), and, for the fused ensemble's two
+GEMM stages, cuBLAS bf16 products at their shapes (the yardstick; the
+port never calls them).
 
-1. requires CUDA and prints the card's name and power limit;
-2. builds the kernels from ``nnpops_tpu_torch/csrc`` (nvcc, sm_90a);
-3. the 'pallas' configuration at 2,601 atoms (species-blocked selection,
-   angular kernel, fused-NN kernel): the angular and fused-NN kernels
-   against their plain PyTorch versions at its shapes, then 2 selection
-   blocks x 8 force steps with the force nudge ``pos += 1e-6 * f``,
-   ``check_overflow`` after each block, and the launch counts;
-4. the window configuration at 2,601 atoms, the main path: every kernel
-   it launches (left-pack, window radial forward and backward, angular
-   forward and backward per row tier, the fused ensemble's stage kernels:
-   layer1, hidden and dx, one launch of each for every species) against
-   its plain version at the shapes the path gives it, recorded from one
-   selection and one step, plus the window radial kernel with forced
-   cell-occupancy bucketing; each kernel timed on the device (20 calls
-   captured in a CUDA graph, replayed between CUDA events) beside its plain
-   version (CUDA events around 20 eager calls), its bound and, for the
-   ensemble's two GEMM stages, cuBLAS bf16 products at their shapes (the
-   yardstick; the port never calls them); the angular and window radial
-   kernels' bounds the larger of their bytes, FP32 and SFU operations (the
-   FP32-only bound printed beside) and two launches of each direction
-   bitwise equal; the ensemble's fwd and fwdgrad also whole, graph and
-   eager, against the per-species oracle, and two launches bitwise equal;
-5. the window main path: 2 selection blocks x 8 force steps as in 3, the
-   final frame's energy without gradients, the launch counts (every step
-   launches the window radial forward and backward, the angular kernel
-   once per tier and each fwdgrad stage of the ensemble exactly once,
-   every selection the left-pack, the final energy each fwd stage once),
-   and one step against the same step through the plain versions;
-6. one selection and 4 steps of the window path at 26,010 atoms, where the
-   planner turns on bucketing and four angular tiers: the ensemble's
-   stage kernels and the window radial kernel's two bucketed calls checked
-   and timed as in 4 at their shapes, finite output, no overflow, ms/step;
-7. BASELINE config 5, ANI + PME Langevin MD (``models.combined.ANIWithPME``
-   with ``md.integrators``), on the JAX example's settings
-   (``examples/run_configs.py`` ``config5``: window ANI-2x, bf16 fused
-   ensemble, skin 0.25, margin 1.2, refresh 5, self energies
-   ``linspace(-40, -1, 7)``; PME grid the next power of two of the box
-   edge (at least 16), order 5, alpha 0.6, coulomb 1389.35457, exclusions
-   ``full((n, 1), -1)``, cutoff 5.0, bucketed window plan; charges x 0.2,
-   masses O 16 and H 1; BAOAB with dt 2e-4, friction 5, kT 0.596):
-   (a) at 2,601 atoms the PME window kernel's forward and backward against
-   their plain version on the inputs of one force step, timed (the bound
-   as the window radial kernel's), two launches of each bitwise equal,
-   plus one call with a forced bucketed plan and the intramolecular
-   exclusions;
-   (b) the config-5 MD at 2,601 atoms: one warm-up block, then 8 blocks of
-   5 steps between CUDA events (ms/step, selection and PME included), the
-   count maxima against their capacities, ``check_overflow``, the launch
-   counts, and one step against the same step through the plain versions;
-   (c) config 5 at 26,010 atoms (bucketed PME plan, four angular tiers):
-   one warm-up block, then 2 blocks of 5 steps: finite, no overflow,
-   ms/step; then the PME window kernel checked and timed as in (a) on the
-   inputs of one force step;
-8. SchNet/CFConv, the JAX package's ``bench_cfconv_periodic`` chain at
-   full width (``models.schnet.periodic_stack``: 26,010 atoms at density
-   0.1, width 128, 50 Gaussians, 10 A cutoff, 6 layers, a 6x6x6 cell grid,
-   640 neighbor lanes, 2048-row chunks): (a) the fused CFConv forward
-   kernel against its plain version (normwise 1e-6) on the inputs of
-   layers 1 and 6, timed on layer 1's, its bound the filter products'
-   FFMAs at the f32 rate, two launches bitwise equal; the CFConv backward
-   kernel against its plain version on the inputs of one layer's backward,
-   timed, its bound that of its three bf16 tensor-core passes (the old f32
-   bound printed beside), two launches bitwise equal, plus one small call
-   with the tanh activation; (b) 1 warm-up and 2 timed
-   iterations (select with mirror, distance payload, 6 layers, gradients
-   of the sum with respect to positions, inputs and weights; ms/iteration,
-   no overflow, 6 launches of each kernel an iteration), then one
-   iteration against the same iteration through the plain forward and
-   backward, which launches neither kernel; (c) the pair
-   path, which has no kernel: config 2 (``SchNetModel``, 21 atoms, 3
-   interactions) and the O(N^2) harness (the stack over
-   ``build_cfconv_neighbors`` at 1,000 atoms);
-9. the window path's opt-in switches (the z-pair and cluster-pair radial
-   kernels, the 'mask' compaction): (a) each of their kernels against its
-   plain version at the shapes its path gives it, timed: the z-pair
-   forward and backward at 2,601 and 26,010 atoms, the cluster-pair
-   forward and backward per i-species at 26,010, the mask and lane
-   left-pack on the 26,010-atom angular grid, and the left-pack of a
-   26,010-atom 'kernel' selection (bitwise, two launches equal); (b)
-   ``window_radial='pair'`` at 2,601 atoms, 2 selection blocks x 8 steps
-   as in 5 (launch counts read just after), and on a frozen 26,010-atom
-   selection, each step against its plain step and against the 'window'
-   step; (c)
-   ``with_blocked_layout(radial_impl='cluster')`` at 26,010 atoms (the
-   planner's time printed): one selection and 4 frozen steps with the
-   counts set to 0 just before, no overflow, one step against its plain
-   step and the 'window' step; (d) ``select_window(compact_impl='mask')``
-   at 26,010 atoms, twice with the counts set to 0 just before, equal to
-   the 'kernel' selection field by field and timed beside it;
-10. the dense and payload ANI paths (BASELINE configs 1 and 3), which
-   launch no kernel (8 random models from the seed, self energies
-   ``linspace(-40, -1, 7)``), each call held against the same call on the
-   CPU (f32: energy relative 1e-6, max|dF| <= 1e-4 max|F|; bf16 ensemble:
-   1e-4 and 5e-3): (a) ``energy_and_forces`` on methanol and the seven
-   ligands of ``tests/data/ligands.npz``, f32 and bf16, and
-   ``energy_and_forces_batch`` on 4 perturbed ``2iuz`` conformers, ms per
-   call from CUDA events; (b) config 3 at 2,601 atoms (cell-list capacity
-   96, ``angular_capacity=32``): ``energy_and_forces_fused``,
-   ``check_overflow``, then 2 selection blocks x 8 nudged steps through
-   ``md.run_md_sticky`` with ``max_angular_neighbors`` as its overflow
-   count, ms/step; (c) the payload path at 26,010 atoms with
-   ``aev_chunk_size=512``: one selection, 4 frozen steps, finite, no
-   overflow, ms/step and peak memory; (d) every launch count stays 0;
-11. the parallel layer over NCCL at world size 1 (one process, one card;
-   no multi-rank run): (a) ``parallel.window_shard.window_sharded_energy``
-   on water-2.6k (the window layout of 4, the selection of
-   ``model.select``), forces by autograd, against the unsharded window
-   call with the f32 'xla' ensemble on the same selection (energy
-   relative 1e-6, max|dF| <= 1e-4 max|F|), one call's launches exactly
-   B.2 forward and backward once and B.3 forward and backward once per
-   tier, ms per call of both; (b) the DP x EP train step
-   (``parallel.sharding``; ANI-2x, 8 models, the 4 perturbed ``2iuz``
-   conformers of phase 10, force weight 0.1, SGD, 3 steps): finite
-   falling losses, after one step the parameters within 1e-4 normwise
-   (the update within 1e-3) of the same step on the CPU, ms per step; (c)
-   ``atom_sharded_energy`` (1hvk), ``tp_ensemble_energy`` and the
-   one-stage ``pipeline_ensemble_energy`` against their unsharded
-   counterparts (``pipeline_ani_ensemble_energy`` needs as many ranks as
-   network layers and runs in the CPU tests only); (d) the train state
-   through ``md.checkpoint.save_checkpoint_distributed`` /
-   ``load_checkpoint_distributed`` bit for bit; (e) the native host
-   library (built by g++) loading a mol2 and a PDB this script writes,
-   equal to the Python loaders, and the capacity planner's counts on
-   water-2.6k equal to its numpy path;
-12. prints the wall time, the kernels' JSON line, the card line again,
-   then ``{"ok": true, "device": ...}`` as the last line.
+Shapes (ANI-2x at full width, 8 random models from the seed, bf16 fused
+ensemble, window layout with skin 0.25 A and margin 1.15, on
+``make_water_box``):
 
-Any failure raises (non-zero exit). Run from the repository root:
+* water-2.6k (867 waters): the left-pack (B.1), the window radial kernel
+  (B.2), the angular kernel over its row tiers (B.3), the fused
+  ensemble's stage kernels (B.4; the forward stages from the energy
+  without gradients), and the z-pair radial kernel (B.9) of
+  ``window_radial='pair'``;
+* config5-2.6k and -26k: the PME window kernel (B.5) in one force step of
+  BASELINE config 5 (``models.combined.config5``);
+* cfconv-26k: the CFConv backward (B.6) and the fused CFConv forward on
+  the layers of the JAX package's ``bench_cfconv_periodic`` chain
+  (:func:`periodic_stack`: 26,010 atoms at density 0.1, width 128, 50
+  Gaussians, 10 A cutoff, 6 layers, a 6x6x6 cell grid, 640 neighbor
+  lanes), checked on layers 1 and 6 (the forward) and on the last
+  layer's backward, timed on one layer;
+* water-26k (8,670 waters): the mask kernel and the lane left-pack (B.7)
+  of ``select_window(compact_impl='mask')``, the cluster-pair radial
+  kernel (B.8) of ``radial_impl='cluster'`` per i-species, and the
+  left-pack and the z-pair kernel again at this size.
+
+Prints one line a kernel, the kernels' JSON line (one entry per key of
+``LAUNCHES``; ``launches`` counts the kernel's launches in the one
+selection and step its inputs came from, the CFConv kernels' in one
+iteration of the chain), then the card line and ``{"ok": true, "device":
+...}`` as the last line. Whether the paths are right on the card is
+``tests/test_torch_cuda.py``'s question; how fast a cell runs is
+``mdbench``'s. Any failure raises (non-zero exit). Run from the repository
+root:
 
     python3 chip_smoke.py
 """
+import contextlib
 import dataclasses
 import functools
 import json
 import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-if not torch.cuda.is_available():
-    print('chip_smoke: torch.cuda.is_available() is false', file=sys.stderr)
-    sys.exit(1)
-
-from nnpops_tpu_torch import ANIBasis, _kernels, run_configs  # noqa: E402
-from nnpops_tpu_torch import native  # noqa: E402
-from nnpops_tpu_torch.dryrun import params_tree  # noqa: E402
-from nnpops_tpu_torch.md import (MDState, initialize,  # noqa: E402
-                                 langevin_baoab, load_checkpoint_distributed,
-                                 run_md_sticky, run_md_sticky_counts,
-                                 save_checkpoint_distributed)
-from nnpops_tpu_torch.models import combined as combined_mod  # noqa: E402
-from nnpops_tpu_torch.models.combined import (  # noqa: E402
-    C5_DT, C5_FRICTION, C5_KT, C5_REFRESH, C5_SELF_ENERGIES)
-from nnpops_tpu_torch.models import ani as ani_mod  # noqa: E402
-from nnpops_tpu_torch.models import schnet as schnet_mod  # noqa: E402
-from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,  # noqa: E402
-                                         plain_energy_and_forces)
-from nnpops_tpu_torch.neighbors import clusters as clusters_mod  # noqa: E402
-from nnpops_tpu_torch.neighbors import window as window_mod  # noqa: E402
-from nnpops_tpu_torch.neighbors.blocked import payload_from_blocked  # noqa: E402
-from nnpops_tpu_torch.neighbors.cell_list import CellList  # noqa: E402
-from nnpops_tpu_torch.ops import (cuda_aev, cuda_cfconv,  # noqa: E402
-                                  cuda_cluster, cuda_nn, cuda_pme,
-                                  cuda_select, cuda_window, cuda_zpair)
-from nnpops_tpu_torch.ops.aev import max_angular_neighbors  # noqa: E402
-from nnpops_tpu_torch.ops.batched_nn import ensemble_energy  # noqa: E402
-from nnpops_tpu_torch.ops.cfconv import build_cfconv_neighbors  # noqa: E402
-from nnpops_tpu_torch.ops.pme import PME  # noqa: E402
-from nnpops_tpu_torch.ops.aev_blocked import (  # noqa: E402
-    compute_aev_blocked, triple_tables)
-from nnpops_tpu_torch.parallel import sharding as sharding_mod  # noqa: E402
-from nnpops_tpu_torch.parallel.launch import process_group  # noqa: E402
-from nnpops_tpu_torch.parallel.window_shard import (  # noqa: E402
-    window_sharded_energy)
-from nnpops_tpu_torch.params import ani_params_to, from_jax_params  # noqa: E402
-from nnpops_tpu_torch.profile_step import _kernel_events, recording  # noqa: E402
-from nnpops_tpu_torch.utils import io as utils_io  # noqa: E402
-from nnpops_tpu_torch.utils import make_water_box  # noqa: E402
-from nnpops_tpu_torch.utils.profiling import StepTimer, trace  # noqa: E402
+from nnpops_tpu_torch import ANIBasis, _kernels
+from nnpops_tpu_torch.config import CFConvConfig
+from nnpops_tpu_torch.models import ani as ani_mod
+from nnpops_tpu_torch.models import combined as combined_mod
+from nnpops_tpu_torch.models.ani import ANIModel, init_ani_params
+from nnpops_tpu_torch.models.schnet import CFConvStack, conv_chunk
+from nnpops_tpu_torch.neighbors import clusters as clusters_mod
+from nnpops_tpu_torch.neighbors import window as window_mod
+from nnpops_tpu_torch.neighbors.cell_list import CellList
+from nnpops_tpu_torch.ops import (cuda_aev, cuda_cfconv, cuda_cluster,
+                                  cuda_nn, cuda_pme, cuda_select,
+                                  cuda_window, cuda_zpair)
+from nnpops_tpu_torch.ops.aev_blocked import triple_tables
+from nnpops_tpu_torch.ops.batched_nn import resolve_device
+from nnpops_tpu_torch.ops.cfconv import CFConvParams
+from nnpops_tpu_torch.utils import make_water_box
+from nnpops_tpu_torch.utils.profiling import recording
 
 MOLECULES = 867          # 2,601 atoms, box 29.6 A
 LARGE_MOLECULES = 8670   # 26,010 atoms, box 63.8 A
 SKIN = 0.25
 MARGIN = 1.15
-REFRESH = 8
-BLOCKS = 2
-LARGE_STEPS = 4
 SEED = 0
 DEV = torch.device('cuda', 0)
+PEAKS = Path(__file__).resolve().parent / 'mdbench' / 'peaks.json'
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 operations/s
-# outside the tensor cores, bf16 tensor-core operations/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-# SFU (MUFU) operations/s: 16 a clock per SM, 132 SMs, at the 1.98 GHz that
-# the f32 peak implies.
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # Operations per unit of work, counted from the CUDA sources (an FMA counts
 # two, a sqrt, exp or log one): angular_aev.cu per triple whose two lanes
 # are inside the cutoff, at the (8, 4) grid, FP32 operations and MUFU
@@ -248,14 +128,6 @@ PAIR_SFU = {'fwd': 18, 'bwd': 19}      # both kernels, per pair inside
 MASK_OPS = 10
 LANE_PACK_OPS = 3
 
-# Depth of the config-5 runs (its settings are models.combined's).
-C5_BLOCKS = 8
-C5_LARGE_BLOCKS = 2
-# Timed iterations of the 26k CFConv stack (models.schnet.periodic_stack)
-# and the atoms of the O(N^2) CFConv harness.
-CFCONV_ITERS = 2
-CFCONV_PAIR_ATOMS = 1000
-
 REPLACES = {
     'angular_aev_fwd': 'nnpops_tpu/ops/pallas_aev.py:614',
     'angular_aev_bwd': 'nnpops_tpu/ops/pallas_aev.py:626',
@@ -283,18 +155,14 @@ REPLACES = {
     'pair_radial_fwd': 'nnpops_tpu/ops/pallas_zpair.py:219',
     'pair_radial_bwd': 'nnpops_tpu/ops/pallas_zpair.py:233',
 }
-SOURCES = {
-    'angular_aev': 'nnpops_tpu_torch/csrc/angular_aev.cu',
-    'cfconv_bwd': 'nnpops_tpu_torch/csrc/cfconv_bwd.cu',
-    'cfconv_fwd': 'nnpops_tpu_torch/csrc/cfconv_fwd.cu',
-    'cluster_radial': 'nnpops_tpu_torch/csrc/cluster_radial.cu',
-    'pair_radial': 'nnpops_tpu_torch/csrc/pair_radial.cu',
-    'window_mask': 'nnpops_tpu_torch/csrc/window_mask.cu',
-    'fused_nn': 'nnpops_tpu_torch/csrc/fused_nn.cu',
-    'left_pack': 'nnpops_tpu_torch/csrc/left_pack.cu',
-    'pme_window': 'nnpops_tpu_torch/csrc/pme_window.cu',
-    'window_radial': 'nnpops_tpu_torch/csrc/window_radial.cu',
-}
+
+
+@functools.cache
+def peak(name):
+    """A rate of ``mdbench/peaks.json`` (H100 SXM, data sheet, dense):
+    'hbm_bytes', 'fp32_flops', 'bf16_tensor_flops' or 'sfu_ops' a
+    second."""
+    return float(json.loads(PEAKS.read_text())[name])
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -358,16 +226,27 @@ def check_normwise(name, got, want, rtol):
         raise AssertionError(f'{name}: max|diff| {err} > {rtol} * {scale}')
 
 
-def entry(name, source, err, kernel_fn, plain_fn, nbytes, ops, ops_per_s,
+def deterministic(label, first, again):
+    """Two launches on the same inputs give bitwise equal outputs."""
+    for a, b in zip(first, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f'{label}: two launches differ')
+
+
+def entry(name, source, err, kernel_fn, plain_fn, nbytes, ops, rate,
           calls=20):
     """One kernel's JSON entry: ``ms`` the kernel's device time
     (:func:`graph_ms` over ``calls`` calls), ``event_ms`` the same calls
     launched eagerly (not in the JSON line), ``plain_ms`` the plain
     version's; the bound is the larger of the bytes over the memory rate
-    and the operations over the peak for their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return dict(name=name, route='cuda', source=SOURCES[source],
-                replaces=REPLACES[name], max_abs_err=err,
+    and ``ops`` over ``rate``, the peak for their type. ``source`` names a
+    file of ``_kernels.SOURCES`` without its suffix."""
+    if f'{source}.cu' not in _kernels.SOURCES:
+        raise KeyError(f'{source}.cu is not a kernel source')
+    t_bytes, t_ops = nbytes / peak('hbm_bytes'), ops / rate
+    return dict(name=name, route='cuda',
+                source=f'nnpops_tpu_torch/csrc/{source}.cu',
+                replaces=REPLACES[name], launches=None, max_abs_err=err,
                 ms=graph_ms(kernel_fn, iters=calls),
                 event_ms=cuda_ms(kernel_fn, iters=calls),
                 plain_ms=cuda_ms(plain_fn, iters=calls),
@@ -381,8 +260,8 @@ def sfu_bound(tested, test_ops, inside, ops, sfu):
     of a kernel's FP32 work (``test_ops`` per pair tested, ``ops`` per pair
     inside the cutoff or triple) and its SFU work (``sfu`` per pair inside
     or triple)."""
-    f32 = (tested * test_ops + inside * ops, F32_OPS_PER_S, 'FP32')
-    mufu = (inside * sfu, SFU_OPS_PER_S, 'SFU')
+    f32 = (tested * test_ops + inside * ops, peak('fp32_flops'), 'FP32')
+    mufu = (inside * sfu, peak('sfu_ops'), 'SFU')
     return max(f32, mufu, key=lambda b: b[0] / b[1]) + (1e3 * f32[0] / f32[1],)
 
 
@@ -409,21 +288,47 @@ def merge(entries):
     return out
 
 
-def build(molecules, impl, basis):
+def record(fn, *targets):
+    """Run ``fn()`` with the launch counts set to 0 and the calls of every
+    ``(module, name)`` of ``targets`` recorded; returns (a list of calls
+    for each target, the launches)."""
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    calls = [[] for _ in targets]
+    with contextlib.ExitStack() as stack:
+        for (module, name), into in zip(targets, calls):
+            stack.enter_context(recording(module, name, into))
+        fn()
+    torch.cuda.synchronize()
+    return calls, dict(_kernels.LAUNCHES)
+
+
+def build(molecules, basis, **layout):
+    """The window-path model on ``make_water_box(molecules)``, its cell
+    list, positions and box on the card."""
     water = make_water_box(molecules, seed=SEED)
     model = ANIModel.from_atomic_numbers(
         water.atomic_numbers, basis, nn_dtype='bfloat16',
         nn_impl='fused').with_blocked_layout(
-            water.positions, water.box, margin=MARGIN, impl=impl, skin=SKIN)
-    if model.aev_impl != impl:
-        raise AssertionError(f'{impl} layout fell back to {model.aev_impl}')
+            water.positions, water.box, margin=MARGIN, impl='window',
+            skin=SKIN, **layout)
+    if model.aev_impl != 'window':
+        raise AssertionError(f'the window layout fell back to '
+                             f'{model.aev_impl}')
     box = torch.tensor(water.box, device=DEV)
     pos = torch.tensor(water.positions, device=DEV)
-    return water, model, model.create_cell_list(water.box, skin=SKIN), pos, box
+    return model, model.create_cell_list(water.box, skin=SKIN), pos, box
+
+
+def select_and_step(model, params, pos, box, cell_list):
+    """One selection and one force step of ``model``."""
+    sel = model.select(pos, box, cell_list)
+    model.energy_and_forces_from_selection(params, pos, box, cell_list, sel)
+    return sel
 
 
 # ---------------------------------------------------------------------------
-# Kernel checks: each kernel against its plain version on the same inputs.
+# Each kernel against its plain version on one recorded input, timed.
 # ---------------------------------------------------------------------------
 
 def angular_entries(deltas, mask, basis, layout, width):
@@ -491,32 +396,11 @@ def angular_entries(deltas, mask, basis, layout, width):
     return fwd, bwd
 
 
-FUSED_GRAD = ('fused_nn_fwdgrad_layer1', 'fused_nn_fwdgrad_hidden',
-              'fused_nn_fwdgrad_dx')
-FUSED_FWD = ('fused_nn_fwd_layer1', 'fused_nn_fwd_hidden')
-
-
-def fused_launches(steps, fwd_calls):
-    """The ensemble's launches on a path: one launch set for every species
-    a force step, and one forward set a call without gradients."""
-    need = {k: steps for k in FUSED_GRAD}
-    need.update({k: fwd_calls for k in FUSED_FWD})
-    return need
-
-
-def require_exact(label, launches, need):
-    for name, n in need.items():
-        if launches[name] != n:
-            raise AssertionError(f'{label}: {name} launched {launches[name]}'
-                                 f' times, expected {n}')
-
-
-def nn_entries(ens, feat, counts, label, calls=20):
+def nn_entries(ens, feat, counts):
     """Entries of the fused ensemble's stage kernels on species-grouped AEV
     rows (one launch set for every species): each stage kernel against its
-    plain version on the same inputs, the whole fwd and fwdgrad against
-    the per-species oracle, two launches bitwise equal, and the times of
-    the stages and of the whole function."""
+    plain version on the same inputs, two launches of the whole function
+    bitwise equal, the stages' times and the cuBLAS yardstick."""
     counts = tuple(int(c) for c in counts)
     n = sum(counts)
     pe = cuda_nn.pack_ensemble(ens)
@@ -533,7 +417,7 @@ def nn_entries(ens, feat, counts, label, calls=20):
     def cols(a, b, name, rtol):
         err = 0.0
         for _, r0, r1, ksp in rows:
-            check_normwise(f'{label} {name}', a[r0:r1, :ksp].float(),
+            check_normwise(name, a[r0:r1, :ksp].float(),
                            b[r0:r1, :ksp].float(), rtol)
             err = max(err, max_abs(a[r0:r1, :ksp].float(),
                                    b[r0:r1, :ksp].float()))
@@ -552,27 +436,19 @@ def nn_entries(ens, feat, counts, label, calls=20):
     d1.copy_(d1_p)
     e_h = torch.empty(n, 1, device=DEV)
     cuda_nn.hidden_cuda(h1, d1, pe, counts, g1, epart, cnt, e_h)
-    check_normwise(f'{label} hidden e', e_h, e_p, 1e-3)
+    check_normwise('hidden e', e_h, e_p, 1e-3)
     err_h = max(max_abs(e_h, e_p), cols(g1, g1_p, 'hidden G1', 1e-2))
     e_hf = torch.empty(n, 1, device=DEV)
     cuda_nn.hidden_cuda(h1, None, pe, counts, None, epart, cnt, e_hf)
-    check_normwise(f'{label} hidden fwd e', e_hf, e_p, 1e-3)
+    check_normwise('hidden fwd e', e_hf, e_p, 1e-3)
     g1.copy_(g1_p)
     dx = torch.empty(n, pe.in_actual, device=DEV)
     cuda_nn.dx_cuda(g1, pe, counts, dx)
-    check_normwise(f'{label} dx', dx, dx_p, 1e-4)
-
-    # The whole function against the per-species oracle, and repeatable.
-    e_k, dx_k = cuda_nn.ensemble_cuda(x, pe, counts, True)
-    e_kf, _ = cuda_nn.ensemble_cuda(x, pe, counts, False)
-    e_o, dx_o = cuda_nn.ensemble_oracle(ens, x, counts, True)
-    check_normwise(f'{label} fwdgrad e', e_k, e_o, 1e-3)
-    check_normwise(f'{label} fwdgrad dx', dx_k, dx_o, 1e-2)
-    check_normwise(f'{label} fwd e', e_kf, e_o, 1e-3)
-    deterministic(f'{label} fused nn fwdgrad', (e_k, dx_k),
-                  cuda_nn.ensemble_cuda(x, pe, counts, True))
-    deterministic(f'{label} fused nn fwd', (e_kf,),
-                  cuda_nn.ensemble_cuda(x, pe, counts, False)[:1])
+    check_normwise('dx', dx, dx_p, 1e-4)
+    for grad, outs in ((True, 2), (False, 1)):    # (e, dx) or (e,)
+        deterministic(f'fused nn {"fwdgrad" if grad else "fwd"}',
+                      cuda_nn.ensemble_cuda(x, pe, counts, grad)[:outs],
+                      cuda_nn.ensemble_cuda(x, pe, counts, grad)[:outs])
 
     # Work, from the packed widths (the ANI-2x widths need no padding).
     m = pe.num_models
@@ -586,6 +462,7 @@ def nn_entries(ens, feat, counts, label, calls=20):
     hid_w_bytes = sum(pe.nets[s].wbuf.numel() * 2 + pe.nets[s].fbuf.numel() * 4
                       for s, _, _, _ in rows)
     io = x16.numel() * 2
+    bf16 = peak('bf16_tensor_flops')
     s1 = [(x16[r0:r1], pe.nets[s].w1) for s, r0, r1, _ in rows]
     s3 = [(g1[r0:r1, :ksp], pe.nets[s].w1) for s, r0, r1, ksp in rows]
     ents = {
@@ -593,66 +470,41 @@ def nn_entries(ens, feat, counts, label, calls=20):
             'fused_nn_fwd_layer1', 'fused_nn', err_l1f,
             lambda: cuda_nn.layer1_cuda(x16, pe, counts, h1f, None, cnt),
             lambda: cuda_nn.layer1_plain(x16, pe, counts, False),
-            io + w1_bytes + 2 * k_rows, 2 * l1_macs, BF16_OPS_PER_S, calls),
+            io + w1_bytes + 2 * k_rows, 2 * l1_macs, bf16),
         'fused_nn_fwd_hidden': entry(
             'fused_nn_fwd_hidden', 'fused_nn', max_abs(e_hf, e_p),
             lambda: cuda_nn.hidden_cuda(h1, None, pe, counts, None, epart,
                                         cnt, e_hf),
             lambda: cuda_nn.hidden_plain(h1_p, None, pe, counts, False),
-            2 * k_rows + hid_w_bytes + 4 * n, 2 * hid_macs, BF16_OPS_PER_S,
-            calls),
+            2 * k_rows + hid_w_bytes + 4 * n, 2 * hid_macs, bf16),
         'fused_nn_fwdgrad_layer1': entry(
             'fused_nn_fwdgrad_layer1', 'fused_nn', err_l1,
             lambda: cuda_nn.layer1_cuda(x16, pe, counts, h1, d1, cnt),
             lambda: cuda_nn.layer1_plain(x16, pe, counts, True),
-            io + w1_bytes + 6 * k_rows, 2 * l1_macs, BF16_OPS_PER_S, calls),
+            io + w1_bytes + 6 * k_rows, 2 * l1_macs, bf16),
         'fused_nn_fwdgrad_hidden': entry(
             'fused_nn_fwdgrad_hidden', 'fused_nn', err_h,
             lambda: cuda_nn.hidden_cuda(h1, d1, pe, counts, g1, epart, cnt,
                                         e_h),
             lambda: cuda_nn.hidden_plain(h1_p, d1_p, pe, counts, True),
-            8 * k_rows + hid_w_bytes + 4 * n, 4 * hid_macs, BF16_OPS_PER_S,
-            calls),
+            8 * k_rows + hid_w_bytes + 4 * n, 4 * hid_macs, bf16),
         'fused_nn_fwdgrad_dx': entry(
             'fused_nn_fwdgrad_dx', 'fused_nn', max_abs(dx, dx_p),
             lambda: cuda_nn.dx_cuda(g1, pe, counts, dx),
             lambda: cuda_nn.dx_plain(g1_p, pe, counts),
             2 * k_rows + w1_bytes + 4 * n * pe.in_actual, 2 * dx_macs,
-            BF16_OPS_PER_S, calls),
+            bf16),
     }
     # Yardstick: cuBLAS bf16 products at the stage-1 and stage-3 shapes
     # (timed here only; the port never calls them).
-    lib1 = graph_ms(lambda: [torch.matmul(a, w.t()) for a, w in s1], calls)
-    lib3 = graph_ms(lambda: [torch.matmul(a, w) for a, w in s3], calls)
+    lib1 = graph_ms(lambda: [torch.matmul(a, w.t()) for a, w in s1])
+    lib3 = graph_ms(lambda: [torch.matmul(a, w) for a, w in s3])
     for name in ('fused_nn_fwd_layer1', 'fused_nn_fwdgrad_layer1'):
         ents[name]['library_ms'] = lib1
     ents['fused_nn_fwdgrad_dx']['library_ms'] = lib3
-    # The whole function: its own bound (every layer's products, x read
-    # and dx written once) against the sum of its stages.
-    macs = sum((r1 - r0) * m * sum(w.shape[1] * w.shape[2]
-                                   for w in ens.networks[s].weights)
-               for s, r0, r1, _ in rows)
-    w_bytes = sum(2 * m * sum(w.shape[1] * w.shape[2]
-                              for w in ens.networks[s].weights)
-                  + 4 * sum(b.numel() for b in ens.networks[s].biases)
-                  for s, _, _, _ in rows)
-    for grad in (False, True):
-        fn = lambda: cuda_nn.ensemble_cuda(x, pe, counts, grad)  # noqa: E731
-        t_ops = 2 * macs * (2 if grad else 1) / BF16_OPS_PER_S
-        t_bytes = (x.numel() * 4 * (2 if grad else 1) + w_bytes
-                   + 4 * n) / HBM_BYTES_PER_S
-        stages = FUSED_GRAD if grad else FUSED_FWD
-        print(f"{label} fused nn {'fwdgrad' if grad else 'fwd'} (rows "
-              f"{counts}): {graph_ms(fn, calls):.5f} ms in a CUDA graph, "
-              f"{cuda_ms(fn, calls):.5f} ms eager, stages "
-              + ', '.join(f"{k[9:]} {ents[k]['ms']:.5f}" for k in stages)
-              + f' ms; bound of the function {1e3 * max(t_ops, t_bytes):.5f}'
-              f' ms; staged intermediates {ws.nbytes / 1e6:.1f} MB')
-    print(f'{label} fused nn yardstick (cuBLAS bf16): layer-1 products '
-          f'{lib1:.5f} ms, dx products {lib3:.5f} ms; max|de| '
-          f'{max_abs(e_k, e_o):.3g} (max|e| {float(e_o.abs().max()):.3g}) '
-          f'max|ddx| {max_abs(dx_k, dx_o):.3g} (max|dx| '
-          f'{float(dx_o.abs().max()):.3g})')
+    print(f'fused nn (rows {counts}): cuBLAS bf16 layer-1 products '
+          f'{lib1:.5f} ms, dx products {lib3:.5f} ms; staged intermediates '
+          f'{ws.nbytes / 1e6:.1f} MB; two launches bitwise equal')
     return ents
 
 
@@ -664,13 +516,12 @@ def left_pack_entry(keys, widths, caps, label='left_pack'):
     again = cuda_select.left_pack_cuda(keys, widths, caps)
     if not (torch.equal(packed, p_packed) and torch.equal(counts, p_counts)):
         raise AssertionError(f'{label}: kernel and plain version differ')
-    if not (torch.equal(packed, again[0]) and torch.equal(counts, again[1])):
-        raise AssertionError(f'{label}: two launches differ')
+    deterministic(label, (packed, counts), again)
     e = entry('left_pack', 'left_pack', 0.0,
               lambda: cuda_select.left_pack_cuda(keys, widths, caps),
               lambda: cuda_select.left_pack_plain(keys, widths, caps),
               4 * (keys.numel() + packed.numel() + counts.numel()),
-              3 * keys.numel(), F32_OPS_PER_S)
+              3 * keys.numel(), peak('fp32_flops'))
     print(f'{label} keys {tuple(keys.shape)} widths {tuple(widths)} caps '
           f'{tuple(caps)} (valid {int((keys >= 0).sum())}): {e["ms"]:.5f} ms '
           f'(eager {e["event_ms"]:.5f}, plain {e["plain_ms"]:.4f}), bound '
@@ -679,12 +530,11 @@ def left_pack_entry(keys, widths, caps, label='left_pack'):
     return e
 
 
-def radial_entries(args, kwargs, label='window', calls=20):
+def radial_entries(args, kwargs):
     """(fwd, bwd) entries of the window radial kernel on one recorded call
     of ``window_radial(candx, candy, candz, centers, rc, eta, rs, cell_caps,
     torchani, center_caps=...)``; the bound the larger of the bytes, the FP32
-    and the SFU operations (the FP32-only bound printed beside), and two
-    launches of the backward bitwise equal."""
+    and the SFU operations (the FP32-only bound printed beside)."""
     cx, cy, cz, ctr = (t.detach().contiguous() for t in args[:4])
     rc, eta, rs, caps, torchani = args[4:9]
     center_caps = kwargs.get('center_caps')
@@ -727,241 +577,19 @@ def radial_entries(args, kwargs, label='window', calls=20):
                                                            spec),
                 lambda: cuda_window.window_radial_plain(
                     cx, cy, cz, ctr, *args[4:9], center_caps=center_caps),
-                io + 4 * out_k.numel(), *bounds['fwd'][:2], calls=calls)
+                io + 4 * out_k.numel(), *bounds['fwd'][:2])
     bwd = entry('window_radial_bwd', 'window_radial',
                 max(max_abs(a, b) for a, b in zip(grads_k, grads_p)),
                 lambda: cuda_window.window_radial_bwd_cuda(cx, cy, cz, ctr, g,
                                                            spec),
                 lambda: torch.autograd.grad(out_p, ins, g, retain_graph=True),
-                2 * io + 4 * g.numel(), *bounds['bwd'][:2], calls=calls)
-    print(f'{label} window radial cells {cx.shape[0]} center rows '
+                2 * io + 4 * g.numel(), *bounds['bwd'][:2])
+    print(f'window radial cells {cx.shape[0]} center rows '
           f'{ctr.shape[1]} lanes {geo.kk} (pairs tested {tested}, inside '
           f'{inside}): ' + times_text(fwd, bwd, bounds)
           + '; two launches bitwise equal')
     return fwd, bwd
 
-
-# ---------------------------------------------------------------------------
-# Driving a path.
-# ---------------------------------------------------------------------------
-
-def force_blocks(model, params, pos, box, cell_list, blocks, steps):
-    """``blocks`` selections of ``steps`` nudged force steps each, with
-    ``check_overflow`` after each block; (pos, sel, f, energies)."""
-    p = pos
-    for _ in range(blocks):
-        sel = model.select(p, box, cell_list)
-        energies = []
-        for _ in range(steps):
-            e, f = model.energy_and_forces_from_selection(params, p, box,
-                                                          cell_list, sel)
-            energies.append(e)
-            p = p + 1e-6 * f
-        model.check_overflow(p, box, cell_list, sel)
-    return p, sel, f, torch.stack(energies)
-
-
-def drive(label, model, params, pos, box, cell_list):
-    """The path's main run: counts set to 0 just before, read just after.
-    Returns (launches, pos, sel)."""
-    force_blocks(model, params, pos, box, cell_list, 1, REFRESH)   # warm-up
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    p, sel, f, energies = force_blocks(model, params, pos, box, cell_list,
-                                       BLOCKS, REFRESH)
-    end.record()
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        e_final = model.energy_from_selection(params, p, box, cell_list, sel)
-    torch.cuda.synchronize()
-    launches = dict(_kernels.LAUNCHES)
-    print(f'{label} main path: {BLOCKS * REFRESH} steps, '
-          f'{start.elapsed_time(end) / (BLOCKS * REFRESH):.3f} ms/step (CUDA '
-          f'events, selection included), launches {launches}')
-    if not (torch.isfinite(energies).all() and torch.isfinite(f).all()
-            and torch.isfinite(e_final)):
-        raise AssertionError(f'{label}: non-finite energy or forces')
-    if tuple(f.shape) != (model.num_atoms, 3):
-        raise AssertionError(f'{label}: forces shape {tuple(f.shape)}')
-    return launches, p, sel
-
-
-def require_launches(label, launches, need):
-    for name, n in need.items():
-        if launches[name] < n:
-            raise AssertionError(f'{label}: {name} launched {launches[name]}'
-                                 f' times, expected at least {n}')
-
-
-def step_vs_plain(label, model, params, p, box, cell_list, sel):
-    """One step through the kernels against the same step through the
-    plain versions, on the card."""
-    e_k, f_k = model.energy_and_forces_from_selection(params, p, box,
-                                                      cell_list, sel)
-    e_p, f_p = plain_energy_and_forces(model, params, p, box, cell_list, sel)
-    check_close(f'{label} step energy', e_k, e_p, rtol=1e-3, atol=0.0)
-    check_normwise(f'{label} step forces', f_k, f_p, rtol=5e-3)
-    print(f'{label} step vs plain: E {float(e_k):.6f} vs {float(e_p):.6f}, '
-          f'max|dF| {max_abs(f_k, f_p):.3g} (max|F| '
-          f'{float(f_p.abs().max()):.3g})')
-
-
-def pallas_phase(basis, params):
-    """Phase 3: the 'pallas' configuration (the first slice's path)."""
-    water, model, cell_list, pos, box = build(MOLECULES, 'pallas', basis)
-    layout = model.blocked_layout
-    print(f'pallas: atoms {model.num_atoms}, rad_caps {layout.rad_caps} '
-          f'ang_caps {layout.ang_caps}, cells {cell_list.ncells} x '
-          f'{cell_list.cell_capacity}')
-    sel = model.select(pos, box, cell_list)
-    order, _ = model._device_arrays(DEV)
-    payload = payload_from_blocked(cell_list, pos, box, sel, rad_only=True,
-                                   layout=layout,
-                                   row_order=sel.inv_order[order])
-    deltas = payload.rad_deltas.detach().contiguous()
-    angular_entries(deltas, payload.ang_mask.contiguous(), basis, layout,
-                    deltas.shape[2])
-    feat = torch.cat(compute_aev_blocked(payload, basis, layout,
-                                         angular_impl='plain'),
-                     1).detach()
-    nn_entries(params.ensemble, feat, model.grouping.counts, 'pallas')
-    launches, p, sel = drive('pallas', model, params, pos, box, cell_list)
-    steps = BLOCKS * REFRESH
-    require_launches('pallas', launches, {
-        'angular_aev_fwd': steps, 'angular_aev_bwd': steps})
-    require_exact('pallas', launches, fused_launches(steps, 1))
-    step_vs_plain('pallas', model, params, p, box, cell_list, sel)
-
-
-def bucketed(model, water, cell_list):
-    """The model with cell-occupancy bucketing forced: small-class caps one
-    under the median per-(cell, species) occupancy."""
-    layout = model.blocked_layout
-    grid = np.asarray(layout.cell_grid)
-    frac = water.positions.astype(np.float64) @ np.linalg.inv(water.box)
-    c3 = np.minimum(((frac - np.floor(frac)) * grid).astype(int), grid - 1)
-    cid = (c3[:, 0] * grid[1] + c3[:, 1]) * grid[2] + c3[:, 2]
-    occ = np.stack([np.bincount(cid[model.species_array == s],
-                                minlength=cell_list.num_cells)
-                    for s in layout.present], 1)
-    small = tuple(int(x) for x in np.maximum(np.median(occ, 0) - 1, 1))
-    n_big = int((occ > np.asarray(small)).any(1).sum())
-    return dataclasses.replace(model, blocked_layout=dataclasses.replace(
-        layout, small_caps=small,
-        num_big_cells=min(-(-(n_big + 8) // 8) * 8, cell_list.num_cells)))
-
-
-def window_kernel_phase(basis, params):
-    """Phase 4: every kernel of the window path against its plain version,
-    on the inputs one selection and one step give it."""
-    water, model, cell_list, pos, box = build(MOLECULES, 'window', basis)
-    layout = model.blocked_layout
-    print(f'window: atoms {model.num_atoms}, grid {layout.cell_grid} '
-          f'cell_caps {layout.cell_caps}, angular grid {layout.ang_cell_grid} '
-          f'caps {layout.ang_cell_caps}, ang_caps {layout.ang_caps}, tiers '
-          f'{layout.ang_tier_caps} rows {layout.ang_tier_rows}, bucketing '
-          f'{layout.small_caps} / {layout.num_big_cells}')
-    packs, radials, angulars, feats = [], [], [], []
-    with recording(window_mod, 'left_pack', packs):
-        sel = model.select(pos, box, cell_list)
-    with recording(window_mod, 'window_radial', radials), \
-            recording(cuda_aev, 'angular_aev', angulars), \
-            recording(ani_mod, 'ensemble_energy_grouped_rows_fused', feats):
-        model.energy_and_forces_from_selection(params, pos, box, cell_list,
-                                               sel)
-    big = bucketed(model, water, cell_list)
-    big_radials = []
-    with recording(window_mod, 'window_radial', big_radials):
-        big_sel = big.select(pos, box, cell_list)
-        big.check_overflow(pos, box, cell_list, big_sel)
-        big.energy_and_forces_from_selection(params, pos, box, cell_list,
-                                             big_sel)
-    ntiers = 1 + len(layout.ang_tier_caps or ())
-    if not (len(packs) == 1 and len(radials) == 1 and len(big_radials) == 2
-            and len(angulars) == ntiers and len(feats) == 1):
-        raise AssertionError('unexpected kernel calls: '
-                             f'{len(packs)} {len(radials)} {len(big_radials)}'
-                             f' {len(angulars)} {len(feats)}')
-    (args, _), = packs
-    kernels = {'left_pack': left_pack_entry(*args)}
-    fwd, bwd = radial_entries(*radials[0])
-    print(f'bucketed radial (small_caps {big.blocked_layout.small_caps}, '
-          f'num_big_cells {big.blocked_layout.num_big_cells}):')
-    for args, kwargs in big_radials:
-        b_fwd, b_bwd = radial_entries(args, kwargs)
-        fwd['max_abs_err'] = max(fwd['max_abs_err'], b_fwd['max_abs_err'])
-        bwd['max_abs_err'] = max(bwd['max_abs_err'], b_bwd['max_abs_err'])
-    kernels.update(window_radial_fwd=fwd, window_radial_bwd=bwd)
-    ang = [angular_entries(a[0].detach().contiguous(), a[1].contiguous(),
-                           *a[2:5]) for a, _ in angulars]
-    kernels['angular_aev_fwd'] = merge([f for f, _ in ang])
-    kernels['angular_aev_bwd'] = merge([b for _, b in ang])
-    (args, _), = feats
-    kernels.update(nn_entries(args[0], args[1].detach(), args[2], 'window'))
-    for k in kernels.values():
-        print(f"{k['name']}: kernel {k['ms']:.4f} ms (CUDA graph; eager "
-              f"launches {k['event_ms']:.4f} ms), plain "
-              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']}), max|err| {k['max_abs_err']:.3g}")
-    return model, cell_list, pos, box, kernels
-
-
-def window_large_phase(basis, params):
-    """Phase 6: one selection and 4 steps at 26,010 atoms."""
-    _, model, cell_list, pos, box = build(LARGE_MOLECULES, 'window', basis)
-    layout = model.blocked_layout
-    print(f'window 26k: atoms {model.num_atoms}, grid {layout.cell_grid} '
-          f'cell_caps {layout.cell_caps}, bucketing {layout.small_caps} / '
-          f'{layout.num_big_cells}, tiers {layout.ang_tier_caps}')
-    if layout.small_caps is None or len(layout.ang_tier_caps or ()) != 3:
-        raise AssertionError('26k plan: expected bucketing and four tiers')
-    t0 = time.perf_counter()
-    sel = model.select(pos, box, cell_list)
-    model.check_overflow(pos, box, cell_list, sel)
-    torch.cuda.synchronize()
-    select_s = time.perf_counter() - t0
-    feats, radials = [], []
-    with recording(ani_mod, 'ensemble_energy_grouped_rows_fused', feats), \
-            recording(window_mod, 'window_radial', radials):
-        model.energy_and_forces_from_selection(params, pos, box, cell_list,
-                                               sel)
-    torch.cuda.synchronize()
-    (args, _), = feats
-    nn_entries(args[0], args[1].detach(), args[2], 'window 26k', calls=10)
-    del feats, args
-    # The window radial kernel's two bucketed calls (big cells at full
-    # rows, the rest at small_caps rows), checked and timed.
-    if len(radials) != 2:
-        raise AssertionError(f'26k: {len(radials)} window radial calls, '
-                             'expected 2 (bucketing)')
-    for args, kwargs in radials:
-        radial_entries(args, kwargs, label='window 26k', calls=10)
-    del radials
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    p = pos
-    start.record()
-    for _ in range(LARGE_STEPS):
-        e, f = model.energy_and_forces_from_selection(params, p, box,
-                                                      cell_list, sel)
-        p = p + 1e-6 * f
-    end.record()
-    torch.cuda.synchronize()
-    model.check_overflow(p, box, cell_list, sel)
-    if not (torch.isfinite(e) and torch.isfinite(f).all()):
-        raise AssertionError('26k: non-finite energy or forces')
-    print(f'window 26k: first selection {1e3 * select_s:.1f} ms (host clock, '
-          f'with check_overflow), {start.elapsed_time(end) / LARGE_STEPS:.3f} '
-          f'ms/step over {LARGE_STEPS} steps (CUDA events, frozen selection),'
-          f' E {float(e):.4f}')
-
-
-# ---------------------------------------------------------------------------
-# BASELINE config 5: ANI + PME Langevin MD.
-# ---------------------------------------------------------------------------
 
 def pme_entries(args, label, calls=20):
     """(fwd, bwd) entries of the PME window kernel on one recorded call of
@@ -969,7 +597,7 @@ def pme_entries(args, label, calls=20):
     cutoff, alpha, coulomb)``; the backward takes the main path's cotangent
     (ones: the energy is the sum of the rows). The bound the larger of the
     bytes, the FP32 and the SFU operations (the FP32-only bound printed
-    beside); two launches of each direction bitwise equal."""
+    beside)."""
     planes = [t.detach().contiguous() for t in args[:5]]
     excl = args[5].contiguous()
     ncells3, cutoff, alpha, coulomb = args[6:10]
@@ -979,8 +607,7 @@ def pme_entries(args, label, calls=20):
     ins = [t.clone().requires_grad_(True) for t in planes]
     out_p = cuda_pme.pme_window_plain(*ins, excl, *args[6:10])
     check_close(f'{label} pme window fwd energy', out_k.sum(),
-                out_p.detach().sum(),
-                rtol=1e-5, atol=0.0)
+                out_p.detach().sum(), rtol=1e-5, atol=0.0)
     g = torch.ones_like(out_k)
     grads_k = cuda_pme.pme_window_bwd_cuda(*planes, excl, g, spec)
     grads_p = torch.autograd.grad(out_p, ins, g, retain_graph=True)
@@ -1029,162 +656,6 @@ def pme_entries(args, label, calls=20):
     return fwd, bwd
 
 
-class Config5:
-    """BASELINE config 5 on ``make_water_box(molecules)``: the combined
-    model, its cell list, tensors on the card and the MD functions."""
-
-    def __init__(self, molecules, basis, params):
-        water = make_water_box(molecules, seed=SEED)
-        self.water, self.params = water, params
-        (self.ff, self.cells, self.pos, self.box, self.charges,
-         self.masses) = combined_mod.config5(water, basis, device=DEV)
-        self.ani = self.ff.ani
-        layout = self.ani.blocked_layout
-        print(f'config 5 at {len(water.positions)} atoms: PME grid '
-              f'{self.ff.pme.config.grid_shape}, window plan '
-              f'{self.ff.pme_window_plan}; ANI grid {layout.cell_grid} '
-              f'cell_caps {layout.cell_caps}, bucketing {layout.small_caps} '
-              f'/ {layout.num_big_cells}, tiers {layout.ang_tier_caps}')
-
-    def select(self, p):
-        return self.ff.select(p, self.box, self.cells)
-
-    def forces(self, sel, p):
-        return self.ff.energy_and_forces_from_selection(
-            self.params, p, self.charges, self.box, self.cells, sel)
-
-    def counts(self, sel, p):
-        return self.ff.overflow_counts(p, self.charges, self.box, self.cells,
-                                       sel)
-
-    def initial_state(self):
-        return initialize(lambda p: self.forces(self.select(p), p), self.pos,
-                          self.masses, C5_KT,
-                          torch.Generator(device=DEV).manual_seed(SEED + 1))
-
-    def run(self, state, blocks):
-        return run_md_sticky_counts(
-            self.select, self.forces,
-            lambda f: langevin_baoab(f, self.masses, C5_DT,
-                                     C5_FRICTION, C5_KT),
-            state, blocks * C5_REFRESH, C5_REFRESH, self.counts)
-
-    def timed_run(self, label, blocks):
-        """One warm-up block, then ``blocks`` blocks between CUDA events,
-        the launch counts set to 0 just before; checks and prints."""
-        state, _, _ = self.run(self.initial_state(), 1)
-        torch.cuda.synchronize()
-        _kernels.reset_launch_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        final, energies, stats = self.run(state, blocks)
-        end.record()
-        torch.cuda.synchronize()
-        launches = dict(_kernels.LAUNCHES)
-        steps = blocks * C5_REFRESH
-        self.ff.check_counts(stats, self.cells)
-        self.ff.check_overflow(final.positions, self.charges, self.box,
-                               self.cells)
-        if not (torch.isfinite(energies).all()
-                and torch.isfinite(final.positions).all()
-                and torch.isfinite(final.velocities).all()):
-            raise AssertionError(f'{label}: non-finite MD state')
-        host = {k: v.cpu().tolist() for k, v in stats.items()}
-        print(f'{label}: {steps} Langevin steps, '
-              f'{start.elapsed_time(end) / steps:.3f} ms/step (CUDA events, '
-              f'selection every {C5_REFRESH} steps and PME included), energy '
-              f'{float(energies[0]):.4f} -> {float(energies[-1]):.4f}, count '
-              f'maxima {host} within {self.ff.capacities(self.cells)}, '
-              f'launches {launches}')
-        return final, launches
-
-
-def config5_phase(basis):
-    """Phase 7: BASELINE config 5 at 2,601 and 26,010 atoms. Returns the
-    PME window kernel's entries with their launches from (b)."""
-    params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
-                             basis, num_models=8,
-                             self_energies=C5_SELF_ENERGIES,
-                             device=DEV)
-    c5 = Config5(MOLECULES, basis, params)
-    ff = c5.ff
-
-    # (a) The PME window kernel on the inputs of one force step.
-    calls = []
-    sel = c5.select(c5.pos)
-    with recording(cuda_pme, 'pme_window', calls):
-        c5.forces(sel, c5.pos)
-    if len(calls) != 1:
-        raise AssertionError(f'pme_window called {len(calls)} times a step')
-    fwd, bwd = pme_entries(calls[0][0], 'config 5')
-    water = c5.water
-    n = len(water.positions)
-    excl = np.full((n, 2), -1, np.int32)
-    for m in range(n // 3):
-        o, h1, h2 = 3 * m, 3 * m + 1, 3 * m + 2
-        excl[o], excl[h1], excl[h2] = [h1, h2], [o, h2], [o, h1]
-    cfg = ff.pme.config
-    pme_x = PME(*cfg.grid_shape, cfg.order, cfg.alpha, cfg.coulomb, excl,
-                device=DEV)
-    grid3, cap = ff.pme_window_plan[:2]
-    bplan = (grid3, cap, max(8, cap - 8), int(np.prod(grid3)) // 2)
-    if int(pme_x.direct_window_overflow(c5.pos, c5.box, bplan)) > cap:
-        raise AssertionError('forced bucketed PME plan overflows')
-    calls = []
-    with recording(cuda_pme, 'pme_window', calls):
-        pme_x.compute_direct_window(c5.pos, c5.charges, ff.pme_cutoff,
-                                    c5.box, bplan)
-    print(f'bucketed PME plan {bplan}, 2 exclusions per atom:')
-    b_fwd, b_bwd = pme_entries(calls[0][0], 'bucketed')
-    fwd['max_abs_err'] = max(fwd['max_abs_err'], b_fwd['max_abs_err'])
-    bwd['max_abs_err'] = max(bwd['max_abs_err'], b_bwd['max_abs_err'])
-
-    # (b) The config-5 MD at 2,601 atoms.
-    final, launches = c5.timed_run('config 5 at 2,601 atoms', C5_BLOCKS)
-    steps = C5_BLOCKS * C5_REFRESH
-    ntiers = 1 + len(c5.ani.blocked_layout.ang_tier_caps or ())
-    require_launches('config 5', launches, {
-        'pme_window_fwd': steps, 'pme_window_bwd': steps,
-        'left_pack': C5_BLOCKS, 'window_radial_fwd': steps,
-        'window_radial_bwd': steps, 'angular_aev_fwd': ntiers * steps,
-        'angular_aev_bwd': ntiers * steps, **fused_launches(steps, 0)})
-    p = final.positions
-    sel = c5.select(p)
-    e_k, f_k = c5.forces(sel, p)
-    e_p, f_p = combined_mod.plain_energy_and_forces(
-        ff, params, p, c5.charges, c5.box, c5.cells, sel)
-    check_close('config 5 step energy', e_k, e_p, rtol=1e-3, atol=0.0)
-    check_normwise('config 5 step forces', f_k, f_p, rtol=5e-3)
-    print(f'config 5 step vs plain: E {float(e_k):.6f} vs {float(e_p):.6f}, '
-          f'max|dF| {max_abs(f_k, f_p):.3g} (max|F| '
-          f'{float(f_p.abs().max()):.3g})')
-    fwd['launches'] = launches['pme_window_fwd']
-    bwd['launches'] = launches['pme_window_bwd']
-
-    # (c) Config 5 at 26,010 atoms.
-    big = Config5(LARGE_MOLECULES, basis, params)
-    plan = big.ff.pme_window_plan
-    if (plan is None or plan[2] is None
-            or len(big.ani.blocked_layout.ang_tier_caps or ()) != 3):
-        raise AssertionError('config 5 at 26k: expected a bucketed PME plan '
-                             'and four angular tiers')
-    big.timed_run('config 5 at 26,010 atoms', C5_LARGE_BLOCKS)
-    # The PME window kernel at 26k's shapes, checked and timed.
-    calls = []
-    big_sel = big.select(big.pos)
-    with recording(cuda_pme, 'pme_window', calls):
-        big.forces(big_sel, big.pos)
-    if len(calls) != 1:
-        raise AssertionError(f'pme_window called {len(calls)} times a step')
-    pme_entries(calls[0][0], 'config 5 at 26k', calls=10)
-    return fwd, bwd
-
-
-# ---------------------------------------------------------------------------
-# SchNet / CFConv: the periodic 6-layer stack and the pair path.
-# ---------------------------------------------------------------------------
-
 def cfconv_pair_ops(width, gaussians):
     """Operations per valid pair of the CFConv backward, counted from
     ``csrc/cfconv_bwd.cu`` (an FMA counts two): ``(products, elementwise)``,
@@ -1194,32 +665,6 @@ def cfconv_pair_ops(width, gaussians):
     d_fc terms (18 W) and the cutoff (6)."""
     return (2 * (3 * width * width + 3 * gaussians * width),
             11 * gaussians + 18 * width + 6)
-
-
-def cfconv_bwd_check(label, args, cfg, chunk):
-    """The kernel against its plain version on one recorded call of
-    ``cfconv_bwd(params, dist, mask, idx, x, g, config, ...)``; normwise
-    gates: 1e-4 of the reference's scale on d_dist and d_x, 1e-3 on the
-    weight gradients (sums over every pair)."""
-    params, dist, mask, idx, x, g = args[:6]
-    got = cuda_cfconv.cfconv_bwd_cuda(params, dist, mask, idx, x, g, cfg)
-    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg,
-                                        chunk)
-    (gw, gd, gx), (ww, wd, wx) = got, want
-    for name, a, b, tol in ([('d_dist', gd, wd, 1e-4), ('d_x', gx, wx, 1e-4)]
-                            + [(f'd_{n}', a, b, 1e-3) for n, a, b in
-                               zip(('w1', 'b1', 'w2', 'b2'), gw, ww)]):
-        check_normwise(f'{label} cfconv bwd {name}', a, b, tol)
-    if bool(gd[~mask].any()):
-        raise AssertionError(f'{label}: nonzero d_dist on a masked lane')
-    err = max(max_abs(a, b) for a, b in zip((*gw, gd, gx), (*ww, wd, wx)))
-    print(f'{label} cfconv bwd rows {dist.shape[0]} lanes {dist.shape[1]} '
-          f'({cfg.activation}): max|d d_dist| {max_abs(gd, wd):.3g} (max '
-          f'{float(wd.abs().max()):.3g}), max|d d_x| {max_abs(gx, wx):.3g} '
-          f'(max {float(wx.abs().max()):.3g}), max|d dW| '
-          f'{max(max_abs(a, b) for a, b in zip(gw, ww)):.3g} (max '
-          f'{max(float(b.abs().max()) for b in ww):.3g})')
-    return err
 
 
 def cfconv_fwd_check(label, args, cfg, chunk):
@@ -1255,103 +700,69 @@ def cfconv_fwd_entry(calls, cfg, chunk):
     nbytes = n * k * (4 + 1 + 4) + 2 * 4 * n * wd \
         + 4 * (ng * wd + wd + wd * wd + wd + ng)
     ops = pairs * 2 * (ng * wd + wd * wd)
+    f32 = peak('fp32_flops')
     kernel = lambda: cuda_cfconv.cfconv_fwd_cuda(  # noqa: E731
         params, dist, mask, idx, x, cfg)
     e = entry('cfconv_fwd', 'cfconv_fwd', err, kernel,
               lambda: cuda_cfconv.conv_fwd_plain(params, dist, mask, idx, x,
                                                  cfg, chunk),
-              nbytes, ops, F32_OPS_PER_S, calls=2)
+              nbytes, ops, f32, calls=2)
     deterministic('cfconv_fwd', [kernel()], [kernel()])
     print(f"cfconv_fwd: rows {n} lanes {k}, valid pairs {pairs}: kernel "
           f"{e['ms']:.4f} ms (CUDA graph; eager {e['event_ms']:.4f} ms), "
           f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-          f"({e['bound_by']}: {ops} FFMA operations at "
-          f"{F32_OPS_PER_S:.3g}/s, {nbytes} bytes), "
-          f"{100 * e['bound_ms'] / e['ms']:.1f} % of it "
-          f"({ops / e['ms'] / 1e9:.1f} TFLOP/s); library none; max|err| "
-          f"{err:.3g}")
+          f"({e['bound_by']}: {ops} FFMA operations at {f32:.3g}/s, "
+          f"{nbytes} bytes), {100 * e['bound_ms'] / e['ms']:.1f} % of it "
+          f"({ops / e['ms'] / 1e9:.1f} TFLOP/s); max|err| {err:.3g}")
     return e
 
 
-def cfconv_phase():
-    """Phase 8: the SchNet/CFConv path. (a) the CFConv backward kernel (B.6)
-    against its plain version on one layer's inputs of the 26,010-atom
-    stack, timed, plus one small call with the tanh activation; (b) the
-    stack (``models.schnet.periodic_stack``: select with mirror, distance
-    payload, 6 layers, gradients of the sum with respect to positions,
-    inputs and weights), 1 warm-up and 2 timed iterations, then one
-    iteration against the same iteration through the plain forward and
-    backward; (c) the pair path, which has no kernel: config 2 and the
-    O(N^2) harness. Returns the two kernels' entries (the forward's first)
-    with their launches from (b). The forward kernel is checked and timed
-    in (a) on the inputs the warm-up recorded."""
-    w = schnet_mod.periodic_stack(LARGE_MOLECULES * 3, device=DEV)
-    cfg = w.stack.config
-    cl = w.cell_list
-    print(f'cfconv stack: atoms {w.positions.shape[0]}, box '
-          f'{float(w.box[0, 0]):.2f} A, width {cfg.width}, {cfg.num_gaussians}'
-          f' Gaussians, cutoff {cfg.cutoff}, {w.stack.num_layers} layers, '
-          f'cells {cl.ncells} x {cl.cell_capacity}, capacity {cl.capacity}, '
-          f'chunk {w.chunk_size}')
-    if cl.ncells != (6, 6, 6) or cl.capacity != 640:
-        raise AssertionError('cfconv 26k: expected a 6x6x6 grid, K = 640')
-
-    # (b, warm-up) One iteration, recording the kernels' calls.
-    calls, fwd_calls = [], []
-    with recording(cuda_cfconv, 'cfconv_bwd', calls), \
-            recording(cuda_cfconv, 'cfconv_fwd', fwd_calls):
-        schnet_mod.periodic_stack_grads(w)
-    if len(calls) != w.stack.num_layers or \
-            len(fwd_calls) != w.stack.num_layers:
-        raise AssertionError(f'cfconv_bwd called {len(calls)} times, '
-                             f'cfconv_fwd {len(fwd_calls)} times')
-    fe = cfconv_fwd_entry(fwd_calls, cfg, w.chunk_size)
-    del fwd_calls
-
-    # (a) B.6 on the last layer's backward inputs (the first call).
+def cfconv_bwd_entry(call, cfg, chunk):
+    """B.6 against its plain version on one recorded call of
+    ``cfconv_bwd(params, dist, mask, idx, x, g, config, ...)`` (normwise
+    gates: 1e-4 of the reference's scale on d_dist and d_x, 1e-3 on the
+    weight gradients, sums over every pair), timed. Bound: the three bf16
+    passes of its products on the tensor cores, or the elementwise work at
+    the f32 rate if that takes longer (it does not at these widths), or the
+    bytes; the f32 bound of all its operations printed beside."""
     # Detached: the saved inputs require grad, and the plain version would
     # otherwise keep every chunk's intermediates for autograd.
-    params = tuple(a.detach() for a in calls[0][0][0])
-    args = (params,) + tuple(a.detach() for a in calls[0][0][1:6])
-    del calls
-    params, dist, mask, idx, x, g = args
-    err = cfconv_bwd_check('26k', args, cfg, w.chunk_size)
-    # A small call with the tanh activation: the first 37 rows, their
-    # lanes to other atoms masked out.
-    m37 = mask[:37] & (idx[:37] < 37)
-    err = max(err, cfconv_bwd_check(
-        'tanh', (params, torch.where(m37, dist[:37], 0.0), m37,
-                 torch.where(m37, idx[:37], 37), x[:37].contiguous(),
-                 g[:37].contiguous()),
-        dataclasses.replace(cfg, activation='tanh'), w.chunk_size))
+    params = tuple(a.detach() for a in call[0][0])
+    dist, mask, idx, x, g = (a.detach() for a in call[0][1:6])
+    got = cuda_cfconv.cfconv_bwd_cuda(params, dist, mask, idx, x, g, cfg)
+    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg,
+                                        chunk)
+    (gw, gd, gx), (ww, wd, wx) = got, want
+    for name, a, b, tol in ([('d_dist', gd, wd, 1e-4), ('d_x', gx, wx, 1e-4)]
+                            + [(f'd_{n}', a, b, 1e-3) for n, a, b in
+                               zip(('w1', 'b1', 'w2', 'b2'), gw, ww)]):
+        check_normwise(f'26k cfconv bwd {name}', a, b, tol)
+    if bool(gd[~mask].any()):
+        raise AssertionError('26k: nonzero d_dist on a masked lane')
+    err = max(max_abs(a, b) for a, b in zip((*gw, gd, gx), (*ww, wd, wx)))
+    del got, want, gw, gd, gx, ww, wd, wx
     pairs = int(mask.sum())
     n, k = dist.shape
-    wd, ng = cfg.width, cfg.num_gaussians
-    size = ng * wd + wd + wd * wd + wd
+    width, ng = cfg.width, cfg.num_gaussians
+    size = ng * width + width + width * width + width
     # Every input read once (dist, mask, idx, x, g, weights, centers), every
     # output written once (d_dist, d_x, the four weight gradients).
-    nbytes = n * k * (4 + 1 + 4) + 2 * 4 * n * wd + 4 * (size + ng) \
-        + 4 * n * k + 4 * n * wd + 4 * size
-    prod, elem = (pairs * o for o in cfconv_pair_ops(wd, ng))
-    # The bound: the three bf16 passes of the products on the tensor cores,
-    # or the elementwise work at the f32 rate if that takes longer (it
-    # does not at these widths), or the bytes.
-    tc_bound = 3 * prod / BF16_OPS_PER_S >= elem / F32_OPS_PER_S
-    ops, rate = (3 * prod, BF16_OPS_PER_S) if tc_bound else (elem,
-                                                             F32_OPS_PER_S)
-    # Two calls a measurement: one takes tens of milliseconds.
+    nbytes = n * k * (4 + 1 + 4) + 2 * 4 * n * width + 4 * (size + ng) \
+        + 4 * n * k + 4 * n * width + 4 * size
+    prod, elem = (pairs * o for o in cfconv_pair_ops(width, ng))
+    f32, bf16 = peak('fp32_flops'), peak('bf16_tensor_flops')
+    tc_bound = 3 * prod / bf16 >= elem / f32
+    ops, rate = (3 * prod, bf16) if tc_bound else (elem, f32)
     kernel = lambda: cuda_cfconv.cfconv_bwd_cuda(  # noqa: E731
         params, dist, mask, idx, x, g, cfg)
     e = entry('cfconv_bwd', 'cfconv_bwd', err, kernel,
               lambda: cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x,
-                                                   g, cfg, w.chunk_size),
+                                                   g, cfg, chunk),
               nbytes, ops, rate, calls=2)
     first, again = kernel(), kernel()
     deterministic('cfconv_bwd', [*first[0], *first[1:]],
                   [*again[0], *again[1:]])
-    del args, params, dist, mask, idx, x, g, first, again
-    f32_bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                          (prod + elem) / F32_OPS_PER_S)
+    f32_bound = 1e3 * max(nbytes / peak('hbm_bytes'), (prod + elem) / f32)
     print(f"cfconv_bwd: rows {n} lanes {k}, valid pairs {pairs}: kernel "
           f"{e['ms']:.4f} ms (CUDA graph; eager {e['event_ms']:.4f} ms), "
           f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
@@ -1359,106 +770,9 @@ def cfconv_phase():
           f"{ops} operations at {rate:.3g}/s; {elem} elementwise "
           f"operations, {nbytes} bytes), {100 * e['bound_ms'] / e['ms']:.1f} "
           f"% of it; the f32 bound of all {prod + elem} operations "
-          f"{f32_bound:.4f} ms; max|err| {err:.3g}")
-
-    # (b) The stack: 2 timed iterations, selection included.
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(CFCONV_ITERS):
-        value, d_pos, d_x, dw, sel = schnet_mod.periodic_stack_grads(w)
-    end.record()
-    torch.cuda.synchronize()
-    launches = dict(_kernels.LAUNCHES)
-    ms = start.elapsed_time(end) / CFCONV_ITERS
-    max_nbr, max_occ = int(sel.max_neighbors), int(sel.max_cell_occupancy)
-    print(f'cfconv stack 26k: {CFCONV_ITERS} iterations, {ms:.3f} '
-          f'ms/iteration (CUDA events, selection included), max_neighbors '
-          f'{max_nbr} <= {cl.capacity}, max_cell_occupancy {max_occ} <= '
-          f'{cl.cell_capacity}, value {float(value):.6f}, launches {launches}')
-    if max_nbr > cl.capacity or max_occ > cl.cell_capacity:
-        raise AssertionError('cfconv 26k: selection overflow')
-    if not all(bool(torch.isfinite(t).all())
-               for t in (value, d_pos, d_x, *[a for p in dw for a in p])):
-        raise AssertionError('cfconv 26k: non-finite value or gradients')
-    if tuple(d_pos.shape) != tuple(w.positions.shape) or \
-            tuple(d_x.shape) != tuple(w.inputs.shape):
-        raise AssertionError('cfconv 26k: gradient shapes')
-    need = CFCONV_ITERS * w.stack.num_layers
-    if launches['cfconv_bwd'] != need or launches['cfconv_fwd'] != need:
-        raise AssertionError(f'cfconv 26k: {launches["cfconv_fwd"]} forward '
-                             f'and {launches["cfconv_bwd"]} backward '
-                             f'launches, expected {need} each')
-    e['launches'] = launches['cfconv_bwd']
-    fe['launches'] = launches['cfconv_fwd']
-    before = dict(_kernels.LAUNCHES)
-    p_value, p_pos, p_x, p_dw, _ = schnet_mod.periodic_stack_grads(w, True)
-    if dict(_kernels.LAUNCHES) != before:
-        raise AssertionError('the plain iteration launched a kernel')
-    check_close('cfconv stack value', value, p_value, rtol=1e-5, atol=0.0)
-    check_normwise('cfconv stack d_positions', d_pos, p_pos, 1e-3)
-    check_normwise('cfconv stack d_inputs', d_x, p_x, 1e-3)
-    for i, (a, b) in enumerate(zip(dw, p_dw)):
-        for name, ga, gb in zip(('w1', 'b1', 'w2', 'b2'), a, b):
-            check_normwise(f'cfconv stack layer {i} d_{name}', ga, gb, 1e-3)
-    print(f'cfconv stack vs plain: value {float(value):.6f} vs '
-          f'{float(p_value):.6f}, max|d d_pos| {max_abs(d_pos, p_pos):.3g} '
-          f'(max {float(p_pos.abs().max()):.3g}), max|d d_x| '
-          f'{max_abs(d_x, p_x):.3g} (max {float(p_x.abs().max()):.3g})')
-    del w, d_pos, d_x, dw, p_pos, p_x, p_dw, sel
-
-    # (c) The pair path: config 2 and the O(N^2) harness.
-    rng = np.random.RandomState(0)
-    pos = torch.tensor(rng.rand(21, 3).astype(np.float32) * 6, device=DEV)
-    species = torch.tensor(rng.randint(0, 3, 21), dtype=torch.int32,
-                           device=DEV)
-    model = schnet_mod.SchNetModel(cfg, num_species=3, num_interactions=3)
-    sparams = model.init(torch.Generator(device=DEV).manual_seed(SEED + 1),
-                         device=DEV)
-    energy, forces = model.energy_and_forces(sparams, pos, species)
-    if not (torch.isfinite(energy) and bool(torch.isfinite(forces).all())
-            and tuple(forces.shape) == (21, 3)):
-        raise AssertionError('config 2: non-finite energy or forces')
-    print(f'config 2 (SchNet, 21 atoms, 3 interactions): E '
-          f'{float(energy):.4f}, max|F| {float(forces.abs().max()):.4f}')
-    n_pair = CFCONV_PAIR_ATOMS
-    side = (n_pair / 0.1) ** (1 / 3)
-    rng = np.random.RandomState(0)
-    pos = torch.tensor(rng.rand(n_pair, 3).astype(np.float32) * side,
-                       device=DEV)
-    x = torch.tensor(rng.randn(n_pair, cfg.width).astype(np.float32),
-                     device=DEV)
-    stack = schnet_mod.CFConvStack(cfg, num_layers=6)
-    sparams = stack.init(torch.Generator(device=DEV).manual_seed(SEED),
-                         device=DEV)
-
-    def harness():
-        p = pos.detach().requires_grad_(True)
-        xx = x.detach().requires_grad_(True)
-        out = stack(sparams, build_cfconv_neighbors(p, cfg.cutoff), xx).sum()
-        return (out.detach(), *torch.autograd.grad(out, (p, xx)))
-
-    value, d_pos, d_x = harness()
-    if not all(bool(torch.isfinite(t).all()) for t in (value, d_pos, d_x)):
-        raise AssertionError('O(N^2) harness: non-finite value or gradients')
-    print(f'cfconv O(N^2) harness ({n_pair} atoms, 6 layers, build + '
-          f'backprop): {cuda_ms(harness, iters=3, warmup=1):.3f} ms/iteration'
-          f' (CUDA events), value {float(value):.4f}')
-    return {'cfconv_fwd': fe, 'cfconv_bwd': e}
-
-
-# ---------------------------------------------------------------------------
-# Phase 9: the window path's opt-in switches (z-pair and cluster-pair
-# radial kernels, the 'mask' compaction).
-# ---------------------------------------------------------------------------
-
-def deterministic(label, first, again):
-    """Two launches on the same inputs give bitwise equal outputs."""
-    for a, b in zip(first, again):
-        if not torch.equal(a, b):
-            raise AssertionError(f'{label}: two launches differ')
+          f"{f32_bound:.4f} ms; max|err| {err:.3g}; two launches bitwise "
+          f"equal")
+    return e
 
 
 def culled_tests(pos, ctr, runs, rc):
@@ -1639,7 +953,8 @@ def cluster_entries(args, label):
 
 def mask_entries(mask_args, pack_args):
     """Entries of the mask kernel and the lane left-pack on one recorded
-    'mask' selection; both must equal their plain versions exactly."""
+    'mask' selection; both must equal their plain versions exactly, and
+    two launches each other."""
     cx, cy, cz, centers = (t.contiguous() for t in mask_args[:4])
     w2, caps = mask_args[4:6]
     m_k = cuda_select.window_mask_cuda(cx, cy, cz, centers, w2, caps)
@@ -1647,6 +962,8 @@ def mask_entries(mask_args, pack_args):
     if not torch.equal(m_k, m_p):
         raise AssertionError(f'window_mask: kernel and plain differ in '
                              f'{int((m_k != m_p).sum())} of {m_k.numel()}')
+    deterministic('window_mask', [m_k], [cuda_select.window_mask_cuda(
+        cx, cy, cz, centers, w2, caps)])
     m_atom, widths, a_caps = pack_args
     m_atom = m_atom.contiguous()
     lanes, counts = cuda_select.left_pack_lanes_cuda(m_atom, widths, a_caps)
@@ -1654,21 +971,24 @@ def mask_entries(mask_args, pack_args):
                                                           a_caps)
     if not (torch.equal(lanes, p_lanes) and torch.equal(counts, p_counts)):
         raise AssertionError('left_pack_lanes: kernel and plain differ')
+    deterministic('left_pack_lanes', (lanes, counts),
+                  cuda_select.left_pack_lanes_cuda(m_atom, widths, a_caps))
     ncells, c, kk = m_k.shape
+    f32 = peak('fp32_flops')
     mask = entry('window_mask', 'window_mask', 0.0,
                  lambda: cuda_select.window_mask_cuda(cx, cy, cz, centers,
                                                       w2, caps),
                  lambda: cuda_select.window_mask_plain(cx, cy, cz, centers,
                                                        w2, caps),
                  4 * (3 * cx.numel() + centers.numel()) + m_k.numel(),
-                 MASK_OPS * m_k.numel(), F32_OPS_PER_S)
+                 MASK_OPS * m_k.numel(), f32)
     pack = entry('left_pack_lanes', 'window_mask', 0.0,
                  lambda: cuda_select.left_pack_lanes_cuda(m_atom, widths,
                                                           a_caps),
                  lambda: cuda_select.left_pack_lanes_plain(m_atom, widths,
                                                            a_caps),
                  m_atom.numel() + 4 * (lanes.numel() + counts.numel()),
-                 LANE_PACK_OPS * m_atom.numel(), F32_OPS_PER_S)
+                 LANE_PACK_OPS * m_atom.numel(), f32)
     # Empty slot rows sit at FAR and hold ones against the FAR lanes.
     occupied = centers[:, :, 0] < cuda_window.FAR
     print(f'window_mask cells {ncells} rows {c} lanes {kk} (valid '
@@ -1680,718 +1000,262 @@ def mask_entries(mask_args, pack_args):
           f'rows {m_atom.shape[0]} widths {tuple(widths)} caps '
           f'{tuple(a_caps)}: {pack["ms"]:.4f} ms (eager '
           f'{pack["event_ms"]:.4f}, plain {pack["plain_ms"]:.4f}, bound '
-          f'{pack["bound_ms"]:.5f} {pack["bound_by"]})')
+          f'{pack["bound_ms"]:.5f} {pack["bound_by"]}); two launches '
+          'bitwise equal')
     return mask, pack
 
 
-def step_vs_window(label, model, window, params, p, box, cell_list, sel):
-    """One step of an opt-in radial path against the default 'window' step
-    at the same positions, at the force gate."""
-    e_k, f_k = model.energy_and_forces_from_selection(params, p, box,
-                                                      cell_list, sel)
-    e_w, f_w = window.energy_and_forces_from_selection(
-        params, p, box, cell_list, window.select(p, box, cell_list))
-    check_close(f'{label} vs window energy', e_k, e_w, rtol=1e-3, atol=0.0)
-    check_normwise(f'{label} vs window forces', f_k, f_w, rtol=5e-3)
-    print(f'{label} step vs window step: E {float(e_k):.6f} vs '
-          f'{float(e_w):.6f}, max|dF| {max_abs(f_k, f_w):.3g} (max|F| '
-          f'{float(f_w.abs().max()):.3g})')
+# ---------------------------------------------------------------------------
+# The CFConv workload: the JAX package's bench_cfconv_periodic chain.
+# ---------------------------------------------------------------------------
+
+class PeriodicStack(NamedTuple):
+    """The periodic CFConv workload of the JAX package's
+    ``benchmarks/bench_components.py`` ``bench_cfconv_periodic``: a 6-layer
+    stack (width 128, 50 Gaussians, 10 A cutoff, ssp) on uniform random
+    positions at density 0.1 A^-3, with a cell list of capacity 640 (the
+    density estimate plus 30 %, rounded up to 128) and 2048-row chunks."""
+    stack: CFConvStack
+    params: Tuple[CFConvParams, ...]
+    cell_list: CellList
+    positions: torch.Tensor
+    box: torch.Tensor
+    inputs: torch.Tensor
+    chunk_size: Optional[int]
 
 
-def frozen_steps(label, model, params, pos, box, cell_list, sel):
-    """LARGE_STEPS nudged steps on a frozen selection between CUDA events;
-    returns (positions, ms/step)."""
-    model.energy_and_forces_from_selection(params, pos, box, cell_list, sel)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    p = pos
-    start.record()
-    for _ in range(LARGE_STEPS):
-        e, f = model.energy_and_forces_from_selection(params, p, box,
-                                                      cell_list, sel)
-        p = p + 1e-6 * f
-    end.record()
-    torch.cuda.synchronize()
-    model.check_overflow(p, box, cell_list, sel)
-    if not (torch.isfinite(e) and torch.isfinite(f).all()):
-        raise AssertionError(f'{label}: non-finite energy or forces')
-    ms = start.elapsed_time(end) / LARGE_STEPS
-    print(f'{label}: {ms:.3f} ms/step over {LARGE_STEPS} steps (CUDA events, '
-          f'frozen selection), E {float(e):.4f}')
-    return p, ms
+def periodic_stack(num_atoms: int, device=None) -> PeriodicStack:
+    """Build :class:`PeriodicStack` at ``num_atoms``: positions and inputs
+    from ``np.random.RandomState(0)`` in the JAX benchmark's order,
+    weights from a ``torch.Generator`` seeded with 0, on ``device`` (the
+    card unless the caller says otherwise)."""
+    dev = resolve_device(device)
+    cfg = CFConvConfig(width=128, num_gaussians=50, cutoff=10.0,
+                       gaussian_width=10.0 / 49)
+    stack = CFConvStack(cfg, num_layers=6)
+    gen = torch.Generator(device=dev if dev.type == 'cuda' else 'cpu')
+    params = stack.init(gen.manual_seed(0), device=dev)
+    rng = np.random.RandomState(0)
+    side = (num_atoms / 0.1) ** (1 / 3)
+    box = np.diag([side] * 3).astype(np.float32)
+    pos = rng.rand(num_atoms, 3).astype(np.float32) * side
+    x = rng.randn(num_atoms, cfg.width).astype(np.float32)
+    capacity = int(4 / 3 * np.pi * cfg.cutoff ** 3 * 0.1 * 1.3)
+    capacity = -(-capacity // 128) * 128
+    return PeriodicStack(
+        stack, params, CellList.create(box, cfg.cutoff, capacity=capacity),
+        torch.tensor(pos, device=dev), torch.tensor(box, device=dev),
+        torch.tensor(x, device=dev), conv_chunk(num_atoms))
 
 
-def opt_in_phase(basis, params):
-    """Phase 9: the z-pair radial at 2,601 and 26,010 atoms, the
-    cluster-pair radial and the 'mask' compaction at 26,010. Returns the
-    six kernels' entries with their launches."""
-    kernels = {}
-    steps = BLOCKS * REFRESH
+def periodic_stack_grads(w: PeriodicStack):
+    """One iteration of the workload: ``select(build_mirror=True)``, the
+    scatter-free distance payload, the stack, and the gradient of the sum
+    of its output. Returns ``(value, d_positions, d_inputs, weight
+    gradients per layer, selection)``."""
+    with torch.enable_grad():
+        pos = w.positions.detach().requires_grad_(True)
+        x = w.inputs.detach().requires_grad_(True)
+        params = [CFConvParams(*(a.detach().requires_grad_(True) for a in p))
+                  for p in w.params]
+        sel = w.cell_list.select(pos, w.box, build_mirror=True)
+        d, idx, m = w.cell_list.payload_distances_from_selection(pos, w.box,
+                                                                 sel)
+        value = w.stack.apply_distances(params, d, idx, m, x,
+                                        w.chunk_size).sum()
+        flat = [a for p in params for a in p]
+        grads = torch.autograd.grad(value, [pos, x] + flat)
+    dw = tuple(CFConvParams(*grads[2 + 4 * i:6 + 4 * i])
+               for i in range(len(params)))
+    return value.detach(), grads[0], grads[1], dw, sel
 
-    # (a, b) window_radial='pair' at 2,601 atoms.
-    _, window, cell_list, pos, box = build(MOLECULES, 'window', basis)
-    pair = dataclasses.replace(window, window_radial='pair')
-    calls = []
-    with recording(cuda_zpair, 'pair_radial', calls):
-        sel = pair.select(pos, box, cell_list)
-        pair.energy_and_forces_from_selection(params, pos, box, cell_list,
-                                              sel)
-    if len(calls) != 1 or tuple(sel.shift_planes.shape) != (1, 1, 1):
-        raise AssertionError(f'pair step: {len(calls)} kernel calls, shift '
-                             f'planes {tuple(sel.shift_planes.shape)}')
-    fwd, bwd = pair_entries(calls[0][0], 'pair 2.6k')
-    launches, p, sel = drive('pair', pair, params, pos, box, cell_list)
-    require_launches('pair', launches, {
-        'pair_radial_fwd': steps, 'pair_radial_bwd': steps,
-        'left_pack': BLOCKS, 'angular_aev_fwd': steps,
-        'angular_aev_bwd': steps})
-    require_exact('pair', launches, fused_launches(steps, 1))
-    if launches['window_radial_fwd'] or launches['window_radial_bwd']:
-        raise AssertionError('the pair path launched the window radial kernel')
-    step_vs_plain('pair 2.6k', pair, params, p, box, cell_list, sel)
-    step_vs_window('pair 2.6k', pair, window, params, p, box,
-                   cell_list, sel)
-    fwd['launches'] = launches['pair_radial_fwd']
-    bwd['launches'] = launches['pair_radial_bwd']
-    kernels['pair_radial_fwd'], kernels['pair_radial_bwd'] = fwd, bwd
-    del window, pair, sel, p, calls
 
-    # The 26,010-atom models: window, pair and cluster.
-    water, window, cell_list, pos, box = build(LARGE_MOLECULES, 'window',
-                                               basis)
-    base = ANIModel.from_atomic_numbers(water.atomic_numbers, basis,
-                                        nn_dtype='bfloat16', nn_impl='fused')
-    t0 = time.perf_counter()
-    cluster = base.with_blocked_layout(water.positions, water.box,
-                                       margin=MARGIN, impl='window',
-                                       skin=SKIN, radial_impl='cluster')
-    plan_s = time.perf_counter() - t0
-    plan = cluster.blocked_layout.cluster_plan
-    if cluster.window_radial != 'cluster' or plan is None:
-        raise AssertionError('26k: the cluster planner refused the box')
-    if dataclasses.replace(cluster.blocked_layout,
-                           cluster_plan=None) != window.blocked_layout:
-        raise AssertionError('26k: the cluster layout differs from window')
-    print(f'cluster plan 26k ({plan_s:.1f} s host, with_blocked_layout '
-          f'included): ncl {plan.ncl}, jcaps {plan.jcaps}, cand_caps '
-          f'{plan.cand_caps}, kmir {plan.kmir}, col_grid {plan.col_grid}')
+# ---------------------------------------------------------------------------
+# The rows: each kernel's inputs recorded from the path that launches it.
+# ---------------------------------------------------------------------------
 
-    # (b) The pair step on a frozen 26k selection.
-    pair = dataclasses.replace(window, window_radial='pair')
-    calls = []
-    with recording(cuda_zpair, 'pair_radial', calls):
-        sel = pair.select(pos, box, cell_list)
-        pair.energy_and_forces_from_selection(params, pos, box, cell_list,
-                                              sel)
-    big_fwd, big_bwd = pair_entries(calls[0][0], 'pair 26k')
-    fwd['max_abs_err'] = max(fwd['max_abs_err'], big_fwd['max_abs_err'])
-    bwd['max_abs_err'] = max(bwd['max_abs_err'], big_bwd['max_abs_err'])
-    del calls
-    p, _ = frozen_steps('pair 26k', pair, params, pos, box, cell_list, sel)
-    step_vs_plain('pair 26k', pair, params, p, box, cell_list, sel)
-    step_vs_window('pair 26k', pair, window, params, p, box,
-                   cell_list, sel)
-    del pair, sel
+def window_rows(basis, params):
+    """B.1-B.4 and B.9 on water-2.6k: one selection, one step and one
+    energy without gradients of the window path (B.9: of the pair path)."""
+    model, cell_list, pos, box = build(MOLECULES, basis)
+    layout = model.blocked_layout
+    print(f'water-2.6k window: atoms {model.num_atoms}, grid '
+          f'{layout.cell_grid} cell_caps {layout.cell_caps}, angular grid '
+          f'{layout.ang_cell_grid} caps {layout.ang_cell_caps}, ang_caps '
+          f'{layout.ang_caps}, tiers {layout.ang_tier_caps} rows '
+          f'{layout.ang_tier_rows}')
 
-    # (a, c) The cluster step: one selection and frozen steps, the counts
-    # set to 0 just before.
-    calls = []
-    with recording(clusters_mod, 'cluster_radial', calls):
-        sel = cluster.select(pos, box, cell_list)
-        cluster.energy_and_forces_from_selection(params, pos, box, cell_list,
-                                                 sel)
-    if len(calls) != len(plan.present):
-        raise AssertionError(f'cluster_radial called {len(calls)} times')
-    ents = [cluster_entries(args, '26k') for args, _ in calls]
-    del calls
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    sel = cluster.select(pos, box, cell_list)
-    cluster.check_overflow(pos, box, cell_list, sel)
-    torch.cuda.synchronize()
-    select_s = time.perf_counter() - t0
-    p, _ = frozen_steps('cluster 26k', cluster, params, pos, box, cell_list,
-                        sel)
-    launches = dict(_kernels.LAUNCHES)
-    print(f'cluster 26k: selection {1e3 * select_s:.1f} ms (host clock, with '
-          f'check_overflow), launches {launches}')
-    need = (LARGE_STEPS + 1) * len(plan.present)
-    require_launches('cluster', launches, {
-        'cluster_radial_fwd': need, 'cluster_radial_bwd': need})
-    if launches['window_radial_fwd'] or launches['pair_radial_fwd']:
-        raise AssertionError('the cluster path launched another radial '
-                             'kernel')
-    step_vs_plain('cluster 26k', cluster, params, p, box, cell_list, sel)
-    step_vs_window('cluster 26k', cluster, window, params, p, box,
-                   cell_list, sel)
-    for i, name in enumerate(('cluster_radial_fwd', 'cluster_radial_bwd')):
-        kernels[name] = merge([e[i] for e in ents])
-        kernels[name]['launches'] = launches[name]
-    del cluster, sel, ents
+    def window_pass():
+        sel = select_and_step(model, params, pos, box, cell_list)
+        with torch.no_grad():
+            model.energy_from_selection(params, pos, box, cell_list, sel)
 
-    # (a, d) select_window(compact_impl='mask') against 'kernel'.
-    g = window.grouping
-    layout = window.blocked_layout
-    kw = dict(species=window.species_array, layout=layout,
+    (packs, radials, angulars, feats), launches = record(
+        window_pass, (window_mod, 'left_pack'), (window_mod, 'window_radial'),
+        (cuda_aev, 'angular_aev'),
+        (ani_mod, 'ensemble_energy_grouped_rows_fused'))
+    # The step calls each once (the angular kernel once a tier), then the
+    # energy without gradients again.
+    ntiers = 1 + len(layout.ang_tier_caps or ())
+    if not (len(packs) == 1 and len(radials) == 2
+            and len(angulars) == 2 * ntiers and len(feats) == 2):
+        raise AssertionError('unexpected kernel calls: '
+                             f'{len(packs)} {len(radials)} {len(angulars)} '
+                             f'{len(feats)}')
+    (args, _), = packs
+    kernels = {'left_pack': left_pack_entry(*args)}
+    kernels['window_radial_fwd'], kernels['window_radial_bwd'] = \
+        radial_entries(*radials[0])
+    ang = [angular_entries(a[0].detach().contiguous(), a[1].contiguous(),
+                           *a[2:5]) for a, _ in angulars[:ntiers]]
+    kernels['angular_aev_fwd'] = merge([f for f, _ in ang])
+    kernels['angular_aev_bwd'] = merge([b for _, b in ang])
+    args, _ = feats[0]
+    kernels.update(nn_entries(args[0], args[1].detach(), args[2]))
+    del packs, radials, angulars, feats, args, ang
+    counted = {k: launches[k] for k in kernels}
+
+    pair = dataclasses.replace(model, window_radial='pair')
+    (calls,), launches = record(
+        lambda: select_and_step(pair, params, pos, box, cell_list),
+        (cuda_zpair, 'pair_radial'))
+    if len(calls) != 1:
+        raise AssertionError(f'pair step: {len(calls)} kernel calls')
+    for k, e in zip(('pair_radial_fwd', 'pair_radial_bwd'),
+                    pair_entries(calls[0][0], 'pair 2.6k')):
+        kernels[k], counted[k] = e, launches[k]
+    return kernels, counted
+
+
+def pme_row(basis, params, molecules, label, calls):
+    """B.5's (fwd, bwd) entries on the inputs of one force step of config
+    5 at ``molecules`` waters, and the launches of that step."""
+    c5 = combined_mod.config5(make_water_box(molecules, seed=SEED), basis,
+                              device=DEV)
+    print(f'{label}: PME grid {c5.model.pme.config.grid_shape}, window plan '
+          f'{c5.model.pme_window_plan}')
+
+    def force_step():
+        sel = c5.model.select(c5.positions, c5.box, c5.cell_list)
+        c5.model.energy_and_forces_from_selection(
+            params, c5.positions, c5.charges, c5.box, c5.cell_list, sel)
+
+    (recorded,), launches = record(force_step, (cuda_pme, 'pme_window'))
+    if len(recorded) != 1:
+        raise AssertionError(f'pme_window called {len(recorded)} times a '
+                             'step')
+    return pme_entries(recorded[0][0], label, calls=calls) + (launches,)
+
+
+def config5_rows(basis):
+    """B.5 on the inputs of one force step of config 5 at 2,601 atoms (the
+    row) and at 26,010 atoms (printed)."""
+    params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
+                             basis, num_models=8,
+                             self_energies=combined_mod.C5_SELF_ENERGIES,
+                             device=DEV)
+    fwd, bwd, launches = pme_row(basis, params, MOLECULES, 'config5-2.6k', 20)
+    pme_row(basis, params, LARGE_MOLECULES, 'config5-26k', 10)
+    kernels = {'pme_window_fwd': fwd, 'pme_window_bwd': bwd}
+    return kernels, {k: launches[k] for k in kernels}
+
+
+def cfconv_rows():
+    """B.6 and the fused CFConv forward on the layers of one iteration of
+    the 26,010-atom chain."""
+    w = periodic_stack(LARGE_MOLECULES * 3, device=DEV)
+    cfg = w.stack.config
+    cl = w.cell_list
+    print(f'cfconv-26k: atoms {w.positions.shape[0]}, box '
+          f'{float(w.box[0, 0]):.2f} A, width {cfg.width}, {cfg.num_gaussians}'
+          f' Gaussians, cutoff {cfg.cutoff}, {w.stack.num_layers} layers, '
+          f'cells {cl.ncells} x {cl.cell_capacity}, capacity {cl.capacity}, '
+          f'chunk {w.chunk_size}')
+    if cl.ncells != (6, 6, 6) or cl.capacity != 640:
+        raise AssertionError('cfconv 26k: expected a 6x6x6 grid, K = 640')
+    (bwd_calls, fwd_calls), launches = record(
+        lambda: periodic_stack_grads(w), (cuda_cfconv, 'cfconv_bwd'),
+        (cuda_cfconv, 'cfconv_fwd'))
+    layers = w.stack.num_layers
+    if len(bwd_calls) != layers or len(fwd_calls) != layers:
+        raise AssertionError(f'cfconv_bwd called {len(bwd_calls)} times, '
+                             f'cfconv_fwd {len(fwd_calls)} times')
+    kernels = {'cfconv_fwd': cfconv_fwd_entry(fwd_calls, cfg, w.chunk_size)}
+    del fwd_calls
+    # B.6 on the last layer's backward inputs (the first call).
+    first = bwd_calls[0]
+    del bwd_calls
+    kernels['cfconv_bwd'] = cfconv_bwd_entry(first, cfg, w.chunk_size)
+    return kernels, {k: launches[k] for k in kernels}
+
+
+def large_rows(basis, params):
+    """At water-26k: B.7 on the 'mask' selection, B.8 per i-species on one
+    selection and step of the cluster path (the rows), and the left-pack
+    and B.9 again at this size (printed)."""
+    model, cell_list, pos, box = build(LARGE_MOLECULES, basis)
+    layout = model.blocked_layout
+    print(f'water-26k window: atoms {model.num_atoms}, grid '
+          f'{layout.cell_grid} cell_caps {layout.cell_caps}, bucketing '
+          f'{layout.small_caps} / {layout.num_big_cells}, tiers '
+          f'{layout.ang_tier_caps}')
+    g = model.grouping
+    kw = dict(species=model.species_array, layout=layout,
               radial_cutoff=basis.radial_cutoff,
               angular_cutoff=basis.angular_cutoff,
               grouping_order=g.order,
               present_counts=tuple(g.counts[s] for s in layout.present),
               need_shift_planes=True)
-    packs = []
-    with recording(window_mod, 'left_pack', packs):
-        window_mod.select_window(cell_list, pos, box, compact_impl='kernel',
-                                 **kw)
+    (packs,), _ = record(
+        lambda: window_mod.select_window(cell_list, pos, box,
+                                         compact_impl='kernel', **kw),
+        (window_mod, 'left_pack'))
     (args, _), = packs
     left_pack_entry(*args, label='left_pack 26k')
     del packs, args
-    masks, packs = [], []
-    with recording(window_mod, 'window_mask', masks), \
-            recording(window_mod, 'left_pack_lanes', packs):
-        window_mod.select_window(cell_list, pos, box, compact_impl='mask',
-                                 **kw)
-    mask, pack = mask_entries(masks[0][0], packs[0][0])
+    (masks, packs), launches = record(
+        lambda: window_mod.select_window(cell_list, pos, box,
+                                         compact_impl='mask', **kw),
+        (window_mod, 'window_mask'), (window_mod, 'left_pack_lanes'))
+    kernels = dict(zip(('window_mask', 'left_pack_lanes'),
+                       mask_entries(masks[0][0], packs[0][0])))
+    counted = {k: launches[k] for k in kernels}
     del masks, packs
-    times = {'kernel': [], 'mask': []}
-    sels = {}
-    for impl in ('kernel', 'mask', 'mask', 'kernel'):
-        torch.cuda.synchronize()
-        if impl == 'mask' and 'mask' not in sels:
-            _kernels.reset_launch_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        sels[impl] = window_mod.select_window(cell_list, pos, box,
-                                              compact_impl=impl, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        times[impl].append(start.elapsed_time(end))
-        if impl == 'mask' and len(times['mask']) == 2:
-            launches = dict(_kernels.LAUNCHES)
-    require_launches('mask', launches, {'window_mask': 2,
-                                        'left_pack_lanes': 2})
-    if launches['left_pack']:
-        raise AssertionError("the 'mask' selection launched the left-pack")
-    k_sel, m_sel = sels['kernel'], sels['mask']
-    fields = [('ang.' + f, getattr(k_sel.ang, f), getattr(m_sel.ang, f))
-              for f in ('order', 'slot_of_sorted', 'nbr_rad', 'rad_mask',
-                        'max_rad', 'max_ang', 'ang_in_rad')]
-    if k_sel.tier is not None:
-        for t in range(len(k_sel.tier.idx)):
-            fields += [(f'tier.{f}[{t}]', getattr(k_sel.tier, f)[t],
-                        getattr(m_sel.tier, f)[t]) for f in ('idx', 'mask')]
-        fields += [('tier.' + f, getattr(k_sel.tier, f),
-                    getattr(m_sel.tier, f))
-                   for f in ('row_atom', 'tier_counts', 'concat_pos')]
-    for name, a, b in fields:
-        if not torch.equal(a, b):
-            raise AssertionError(f"26k 'mask' selection differs from "
-                                 f"'kernel' in {name}")
-    print(f"select_window 26k (CUDA events, kernel, mask, mask, kernel): "
-          f"'kernel' {times['kernel']} ms, 'mask' {times['mask']} ms; "
-          f'equal in {len(fields)} fields; launches {launches}')
-    mask['launches'] = launches['window_mask']
-    pack['launches'] = launches['left_pack_lanes']
-    kernels['window_mask'], kernels['left_pack_lanes'] = mask, pack
-    return kernels
 
+    pair = dataclasses.replace(model, window_radial='pair')
+    (calls,), _ = record(
+        lambda: select_and_step(pair, params, pos, box, cell_list),
+        (cuda_zpair, 'pair_radial'))
+    pair_entries(calls[0][0], 'pair 26k')
+    del pair, calls
 
-# ---------------------------------------------------------------------------
-# The dense and payload ANI paths (BASELINE configs 1 and 3): no kernel.
-# ---------------------------------------------------------------------------
-
-LIGANDS = Path(__file__).resolve().parent / 'tests' / 'data' / 'ligands.npz'
-DENSE_CALLS = 10
-PAYLOAD_CAPACITY = 96
-PAYLOAD_ANGULAR = 32
-PAYLOAD_CHUNK = 512     # the JAX package's probe chunk at 26k atoms
-
-
-def cpu_gates(label, e, f, e_cpu, f_cpu, bf16):
-    """The card's energy and forces against the same call on the CPU: f32
-    relative energy 1e-6 and max|dF| <= 1e-4 max|F|; bf16 1e-4 and 5e-3."""
-    rtol_e, rtol_f = (1e-4, 5e-3) if bf16 else (1e-6, 1e-4)
-    e, f = e.cpu(), f.cpu()
-    if not (torch.isfinite(e) and torch.isfinite(f).all()):
-        raise AssertionError(f'{label}: non-finite energy or forces')
-    if tuple(f.shape) != tuple(f_cpu.shape):
-        raise AssertionError(f'{label}: forces shape {tuple(f.shape)}')
-    check_close(f'{label} energy', e, e_cpu, rtol=rtol_e, atol=0.0)
-    check_normwise(f'{label} forces', f, f_cpu, rtol=rtol_f)
-    return (abs(float(e) - float(e_cpu)) / abs(float(e_cpu)),
-            max_abs(f, f_cpu) / float(f_cpu.abs().max()))
-
-
-def event_ms(fn, calls):
-    """Mean ms of ``calls`` eager calls of ``fn`` between CUDA events, after
-    one warm-up call; returns (ms, last result)."""
-    out = fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls, out
-
-
-def nudge_integrator(force_fn):
-    """The force-nudge step ``pos += 1e-6 f`` as an ``md`` integrator."""
-    def step(state):
-        x = state.positions + 1e-6 * state.forces
-        energy, forces = force_fn(x)
-        return state._replace(positions=x, forces=forces, energy=energy,
-                              step=state.step + 1)
-    return step
-
-
-def dense_payload_phase(basis, card):
-    """Phase 10: the dense path (config 1) and the payload path (config 3,
-    and at 26,010 atoms), held against the CPU; no kernel may launch."""
-    params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
-                             basis, num_models=8,
-                             self_energies=np.linspace(-40, -1, 7),
-                             device=DEV)
-    cpu = torch.device('cpu')
-    params_cpu = ani_params_to(params, cpu)
-    _kernels.reset_launch_counts()
-
-    # (a) Config 1: methanol and the seven ligands, one call each.
-    ligands = np.load(LIGANDS)
-    mols = [('methanol', np.asarray(run_configs.METHANOL_Z),
-             np.asarray(run_configs.METHANOL_POSITIONS, np.float32))]
-    mols += [(k[:-len('_positions')], ligands[k[:-len('_positions')]
-                                              + '_atomic_numbers'],
-              ligands[k].astype(np.float32))
-             for k in sorted(ligands.files)
-             if k.endswith('_positions') and not k.startswith('water')]
-    if len(mols) != 8:
-        raise AssertionError(f'expected methanol and 7 ligands, got {mols}')
-    for nn_dtype in (None, 'bfloat16'):
-        for name, z, xyz in mols:
-            model = ANIModel.from_atomic_numbers(z, basis, nn_dtype=nn_dtype)
-            pos = torch.tensor(xyz, device=DEV)
-            ms, (e, f) = event_ms(
-                lambda: model.energy_and_forces(params, pos), DENSE_CALLS)
-            e_cpu, f_cpu = model.energy_and_forces(params_cpu, pos.cpu())
-            err_e, err_f = cpu_gates(f'config 1 {name} {nn_dtype}', e, f,
-                                     e_cpu, f_cpu, nn_dtype is not None)
-            print(f'config 1 {name} ({len(z)} atoms, nn {nn_dtype or "f32"}):'
-                  f' energy_and_forces {ms:.3f} ms/call (CUDA events, '
-                  f'{DENSE_CALLS} calls; {card}); vs CPU: E rel {err_e:.2g},'
-                  f' max|dF|/max|F| {err_f:.2g}')
-        name, z, xyz = next(m for m in mols if m[0] == '2iuz')
-        confs = torch.tensor(xyz + 0.02 * np.random.RandomState(SEED).randn(
-            4, *xyz.shape).astype(np.float32), device=DEV)
-        model = ANIModel.from_atomic_numbers(z, basis, nn_dtype=nn_dtype)
-        ms, (e, f) = event_ms(
-            lambda: model.energy_and_forces_batch(params, confs), 3)
-        e_cpu, f_cpu = model.energy_and_forces_batch(params_cpu, confs.cpu())
-        errs = [cpu_gates(f'config 1 batch {i} {nn_dtype}', e[i], f[i],
-                          e_cpu[i], f_cpu[i], nn_dtype is not None)
-                for i in range(4)]
-        print(f'config 1 batch of 4 {name} conformers (nn {nn_dtype or "f32"}'
-              f'): {ms:.3f} ms/call ({card}); vs CPU max: E rel '
-              f'{max(e for e, _ in errs):.2g}, max|dF|/max|F| '
-              f'{max(f for _, f in errs):.2g}')
-
-    # (b) Config 3: 2,601 waters' atoms, the payload path.
-    water = make_water_box(MOLECULES, seed=SEED)
-    model = ANIModel.from_atomic_numbers(water.atomic_numbers, basis,
-                                         angular_capacity=PAYLOAD_ANGULAR)
-    cells = CellList.create(water.box, basis.radial_cutoff,
-                            capacity=PAYLOAD_CAPACITY)
-    pos = torch.tensor(water.positions, device=DEV)
-    box = torch.tensor(water.box, device=DEV)
-    ms, (e, f) = event_ms(
-        lambda: model.energy_and_forces_fused(params, pos, box, cells), 5)
-    e_cpu, f_cpu = model.energy_and_forces_fused(params_cpu, pos.cpu(),
-                                                 box.cpu(), cells)
-    err_e, err_f = cpu_gates('config 3', e, f, e_cpu, f_cpu, False)
-    model.check_overflow(pos, box, cells)
-    print(f'config 3 ({model.num_atoms} atoms, cells {cells.ncells} x '
-          f'{cells.cell_capacity}, K {cells.capacity}, K_ang '
-          f'{model.angular_capacity}): energy_and_forces_fused {ms:.3f} '
-          f'ms/call ({card}); vs CPU: E rel {err_e:.2g}, max|dF|/max|F| '
-          f'{err_f:.2g}; check_overflow passed')
-
-    def sticky(model, cells, pos, box, blocks, steps):
-        ra = basis.angular_cutoff
-        e0, f0 = model.energy_and_forces_fused(params, pos, box, cells)
-        state = MDState(pos, torch.zeros_like(pos), f0, e0,
-                        torch.Generator(device=DEV),
-                        torch.zeros((), dtype=torch.int32, device=DEV))
-        return run_md_sticky(
-            lambda p: model.select(p, box, cells),
-            lambda sel, p: model.energy_and_forces_from_selection(
-                params, p, box, cells, sel),
-            nudge_integrator, state, blocks * steps, steps,
-            lambda sel, p: max_angular_neighbors(
-                cells.payload_from_selection(p, box, sel), ra))
-
-    ms, (final, energies, stats) = event_ms(
-        lambda: sticky(model, cells, pos, box, BLOCKS, REFRESH), 1)
-    steps = BLOCKS * REFRESH
-    stats.check(cells.capacity, cells.cell_capacity, PAYLOAD_ANGULAR)
-    if not (torch.isfinite(energies).all()
-            and torch.isfinite(final.forces).all()):
-        raise AssertionError('config 3 sticky MD: non-finite output')
-    print(f'config 3 sticky MD: {BLOCKS} selections x {REFRESH} nudged steps '
-          f'(run_md_sticky, max_angular_neighbors as overflow_fn): '
-          f'{ms / steps:.3f} ms/step (CUDA events, selections and each '
-          f"block's first force call included; {card}); max counts "
-          f'{int(stats.max_neighbors)}/{int(stats.max_cell_occupancy)}/'
-          f'{int(stats.max_extra)}')
-
-    # (c) The payload path at 26,010 atoms, chunked.
-    water = make_water_box(LARGE_MOLECULES, seed=SEED)
-    model = ANIModel.from_atomic_numbers(water.atomic_numbers, basis,
-                                         angular_capacity=PAYLOAD_ANGULAR,
-                                         aev_chunk_size=PAYLOAD_CHUNK)
-    cells = CellList.create(water.box, basis.radial_cutoff,
-                            capacity=PAYLOAD_CAPACITY)
-    pos = torch.tensor(water.positions, device=DEV)
-    box = torch.tensor(water.box, device=DEV)
-    sel = model.select(pos, box, cells)
-    p = pos
-    model.energy_and_forces_from_selection(params, p, box, cells, sel)
-    torch.cuda.reset_peak_memory_stats()
-
-    def frozen():
-        nonlocal p
-        e, f = model.energy_and_forces_from_selection(params, p, box, cells,
-                                                      sel)
-        p = p + 1e-6 * f
-        return e, f
-
-    ms, (e, f) = event_ms(frozen, LARGE_STEPS)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if not (torch.isfinite(e) and torch.isfinite(f).all()):
-        raise AssertionError('payload 26k: non-finite output')
-    model.check_overflow(p, box, cells, sel)
-    print(f'payload 26k ({model.num_atoms} atoms, chunk {PAYLOAD_CHUNK}): '
-          f'{ms:.3f} ms/step over {LARGE_STEPS} frozen steps (CUDA events; '
-          f'{card}); peak memory {peak:.2f} GiB; no overflow')
-
-    # (d) No kernel launched in (a)-(c).
-    launched = {k: v for k, v in _kernels.LAUNCHES.items() if v}
-    if launched:
-        raise AssertionError(f'the dense and payload paths launched '
-                             f'kernels: {launched}')
-    print('dense and payload paths: no kernel launched')
-
-
-
-# ---------------------------------------------------------------------------
-# The parallel layer at world size 1 (NCCL), the distributed checkpoint and
-# the host utilities.
-# ---------------------------------------------------------------------------
-
-TRAIN_LR = 3e-4
-TRAIN_FORCE_WEIGHT = 0.1
-TRAIN_STEPS = 3
-SHARDED_CALLS = 10
-PP_WIDTH, PP_ROWS, PP_MICROBATCHES = 256, 1024, 4
-ELEMENT_SYMBOLS = {1: 'H', 6: 'C', 7: 'N', 8: 'O', 9: 'F', 16: 'S', 17: 'Cl'}
-
-
-def with_forces(fn, pos):
-    """(energy, forces) of ``fn(pos)`` by autograd."""
-    p = pos.detach().requires_grad_(True)
-    e = fn(p)
-    (g,) = torch.autograd.grad(e, p)
-    return e.detach(), -g
-
-
-def leaf_norm(tensors):
-    return float(torch.sqrt(sum((t.detach().double() ** 2).sum()
-                                for t in tensors)))
-
-
-def traced(fn, calls=3):
-    """(device kernel ms, kernels) per call of ``fn`` under the port's
-    ``utils.profiling.trace`` (torch.profiler)."""
-    with tempfile.TemporaryDirectory() as tmp, trace(tmp) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = _kernel_events(prof)
-    return sum(us for _, us in kernels) / 1e3 / calls, len(kernels) / calls
-
-
-def window_sharded_check(basis, params, mesh, card):
-    """(a) The window-sharded force call at water-2.6k against the
-    unsharded window model (nn_impl 'xla', f32) on the same selection, and
-    its B.2 / B.3 launches, forward and backward."""
-    _, fused, cell_list, pos, box = build(MOLECULES, 'window', basis)
-    model = dataclasses.replace(fused, nn_impl='xla', nn_dtype=None)
-    sel = model.select(pos, box, cell_list)
-    fn = window_sharded_energy(model, mesh, axis='dp')
-
-    def sharded():
-        return with_forces(lambda p: fn(params, p, box, sel), pos)
-
-    def unsharded():
-        return model.energy_and_forces_from_selection(params, pos, box,
-                                                      cell_list, sel)
-
-    sharded()
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    e_sh, f_sh = sharded()
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
-    ntiers = 1 + len(model.blocked_layout.ang_tier_caps or ())
-    need = {'window_radial_fwd': 1, 'window_radial_bwd': 1,
-            'angular_aev_fwd': ntiers, 'angular_aev_bwd': ntiers}
-    if launches != need:
-        raise AssertionError(f'window sharded call launched {launches}, '
-                             f'expected {need}')
-    e_un, f_un = unsharded()
-    check_close('window sharded energy', e_sh, e_un, rtol=1e-6, atol=0.0)
-    check_normwise('window sharded forces', f_sh, f_un, rtol=1e-4)
-    t_sh = StepTimer(sharded, warmup=1).measure(iters=SHARDED_CALLS)
-    t_un = StepTimer(unsharded, warmup=1).measure(iters=SHARDED_CALLS)
-    (dev_sh, k_sh), (dev_un, k_un) = traced(sharded), traced(unsharded)
-    print(f'window_sharded_energy, world size 1 (NCCL), water-2.6k '
-          f'({model.num_atoms} atoms, {ntiers} tiers, f32 ensemble): mean '
-          f'{t_sh["mean_us"] / 1e3:.3f} / median '
-          f'{t_sh["median_us"] / 1e3:.3f} ms/call, device {dev_sh:.3f} ms '
-          f'in {k_sh:.0f} kernels; unsharded xla window call mean '
-          f'{t_un["mean_us"] / 1e3:.3f} / median '
-          f'{t_un["median_us"] / 1e3:.3f} ms/call, device {dev_un:.3f} ms '
-          f'in {k_un:.0f} kernels (StepTimer, CUDA events, {SHARDED_CALLS} '
-          f'calls, energy and forces; device time under utils.profiling.'
-          f'trace; {card}); E rel '
-          f'{abs(float(e_sh - e_un)) / abs(float(e_un)):.2g}, max|dF|/max|F|'
-          f' {max_abs(f_sh, f_un) / float(f_un.abs().max()):.2g}; launches '
-          f'in one call {launches}')
-
-
-def train_check(basis, mesh, card):
-    """(b) The DP x EP train step at world size 1 against the same step
-    on the CPU; returns (model, the state after the steps, the initial
-    parameters on the CPU, the optimizer factory)."""
-    ligands = np.load(LIGANDS)
-    z = ligands['2iuz_atomic_numbers']
-    xyz = ligands['2iuz_positions'].astype(np.float32)
-    confs = torch.tensor(xyz + 0.02 * np.random.RandomState(SEED).randn(
-        4, *xyz.shape).astype(np.float32))
-    model = ANIModel.from_atomic_numbers(z, basis)
-    cpu = torch.device('cpu')
-    params0 = init_ani_params(torch.Generator().manual_seed(SEED), basis,
-                              num_models=8, device=cpu)
-    with torch.no_grad():
-        e0 = torch.stack([model.energy(params0, c) for c in confs])
-    e_t, f_t = e0 - 1.0, torch.zeros_like(confs)
-    opt = functools.partial(torch.optim.SGD, lr=TRAIN_LR)
-
-    # The CPU reference: the plain step, once.
-    ref = from_jax_params(params_tree(params0), cpu)      # a copy
-    ref_leaves = sharding_mod.param_leaves(ref)
-    for p in ref_leaves:
-        p.requires_grad_(True)
-    ref_state = sharding_mod.TrainState(ref, opt(ref_leaves))
-    ref_state, ref_loss = sharding_mod.make_train_step(
-        model, TRAIN_FORCE_WEIGHT)(ref_state, confs, e_t, f_t)
-
-    state = sharding_mod.init_train_state(model, opt, params0, mesh)
-    step = sharding_mod.jit_train_step(model, mesh, TRAIN_FORCE_WEIGHT)
-    batch = sharding_mod.shard_batch(mesh, confs, e_t, f_t)
-    state, loss = step(state, *batch)
-    losses = [float(loss)]
-    got = [p.detach().cpu() for p in sharding_mod.param_leaves(state.params)]
-    want = [p.detach() for p in ref_leaves]
-    start = sharding_mod.param_leaves(params0)
-    err = leaf_norm([g - w for g, w in zip(got, want)]) / leaf_norm(want)
-    upd_err = (leaf_norm([g - w for g, w in zip(got, want)])
-               / leaf_norm([w - p for w, p in zip(want, start)]))
-    check_close('train step loss', torch.tensor(losses[0]), ref_loss,
-                rtol=1e-5, atol=0.0)
-    if not (err <= 1e-4 and upd_err <= 1e-3):
-        raise AssertionError(f'train step: parameters {err} (gate 1e-4) and '
-                             f'update {upd_err} (gate 1e-3) off the CPU step')
-    torch.cuda.synchronize()
-    start_ev = torch.cuda.Event(enable_timing=True)
-    end_ev = torch.cuda.Event(enable_timing=True)
-    start_ev.record()
-    for _ in range(TRAIN_STEPS - 1):
-        state, loss = step(state, *batch)
-        losses.append(float(loss))
-    end_ev.record()
-    torch.cuda.synchronize()
-    ms = start_ev.elapsed_time(end_ev) / (TRAIN_STEPS - 1)
-    if not (np.isfinite(losses).all()
-            and all(b < a for a, b in zip(losses, losses[1:]))):
-        raise AssertionError(f'train step: losses {losses} do not fall')
-    print(f'train step, world size 1 (NCCL), ANI-2x 8 models, 4 perturbed '
-          f'2iuz conformers ({len(z)} atoms), force_weight '
-          f'{TRAIN_FORCE_WEIGHT}, SGD lr {TRAIN_LR}: losses {losses}; '
-          f'{ms:.3f} ms/step over steps 2-{TRAIN_STEPS} (CUDA events, '
-          f'second-order force term included; {card}); after one step vs '
-          f'the CPU step: parameters {err:.2g} normwise, update '
-          f'{upd_err:.2g}')
-    return model, state, params0, opt
-
-
-def other_sharded_check(basis, params, mesh, card):
-    """(c) atom_sharded_energy, tp_ensemble_energy and
-    pipeline_ensemble_energy at world size 1, each against its unsharded
-    counterpart."""
-    ligands = np.load(LIGANDS)
-    z = ligands['1hvk_atomic_numbers']
-    pos = torch.tensor(ligands['1hvk_positions'].astype(np.float32),
-                       device=DEV)
-    model = ANIModel.from_atomic_numbers(z, basis)
-    atom_fn = sharding_mod.atom_sharded_energy(model, mesh, axis='dp')
-    ms_sh, (e_sh, f_sh) = event_ms(
-        lambda: with_forces(lambda p: atom_fn(params, p), pos), DENSE_CALLS)
-    ms_un, (e_un, f_un) = event_ms(
-        lambda: model.energy_and_forces(params, pos), DENSE_CALLS)
-    check_close('atom_sharded energy', e_sh, e_un, rtol=1e-6, atol=0.0)
-    check_normwise('atom_sharded forces', f_sh, f_un, rtol=1e-4)
-    print(f'atom_sharded_energy, world size 1, 1hvk ({len(z)} atoms): '
-          f'{ms_sh:.3f} ms/call vs energy_and_forces {ms_un:.3f} ms/call '
-          f'({card}); E rel {abs(float(e_sh - e_un)) / abs(float(e_un)):.2g}')
-
-    with torch.no_grad():
-        aev = model.aev(pos)
-        grouping, _ = model._device_grouping(DEV)
-        tp_fn = sharding_mod.tp_ensemble_energy(model, mesh, axis='mp')
-        ms_tp, e_tp = event_ms(lambda: tp_fn(params, aev), DENSE_CALLS)
-        ms_ref, e_ref = event_ms(lambda: ensemble_energy(
-            params.ensemble, aev, grouping), DENSE_CALLS)
-        check_close('tp ensemble energy', e_tp, e_ref, rtol=1e-5, atol=0.0)
-        print(f'tp_ensemble_energy, world size 1 (AEV {aev.shape[1]} / 1): '
-              f'{ms_tp:.3f} ms/call vs ensemble_energy {ms_ref:.3f} ms/call '
-              f'({card}); E rel '
-              f'{abs(float(e_tp - e_ref)) / abs(float(e_ref)):.2g}')
-
-        g = torch.Generator(device=DEV).manual_seed(SEED)
-        stage_w = torch.randn(1, PP_WIDTH, PP_WIDTH, generator=g,
-                              device=DEV) / PP_WIDTH ** 0.5
-        stage_b = 0.1 * torch.randn(1, PP_WIDTH, generator=g, device=DEV)
-        x = torch.randn(PP_ROWS, PP_WIDTH, generator=g, device=DEV)
-        pp_fn = sharding_mod.pipeline_ensemble_energy(
-            (PP_WIDTH,), mesh, axis='mp', num_microbatches=PP_MICROBATCHES)
-        ms_pp, y = event_ms(lambda: pp_fn(stage_w, stage_b, x), DENSE_CALLS)
-        ms_plain, y_ref = event_ms(
-            lambda: torch.relu(x @ stage_w[0] + stage_b[0]), DENSE_CALLS)
-        check_normwise('pipeline output', y, y_ref, rtol=1e-5)
-        print(f'pipeline_ensemble_energy, 1 stage, {PP_MICROBATCHES} '
-              f'microbatches of [{PP_ROWS // PP_MICROBATCHES}, {PP_WIDTH}]: '
-              f'{ms_pp:.3f} ms/call vs one layer {ms_plain:.3f} ms/call '
-              f'({card}); max|dy| {max_abs(y, y_ref):.2g}')
-    print('pipeline_ani_ensemble_energy: not run on the card (its stages '
-          'must equal the network depth, 4 for ANI-2x, and the card host '
-          'has one H100); its CPU tests run it over 3 gloo ranks')
-
-
-def checkpoint_check(model, state, params0, opt, mesh):
-    """(d) The train state through the distributed checkpoint and back,
-    bit for bit."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = f'{tmp}/train_state'
-        save_checkpoint_distributed(path, state, mesh)
-        fresh = sharding_mod.init_train_state(model, opt, params0, mesh)
-        load_checkpoint_distributed(path, fresh, mesh)
-    want = sharding_mod.param_leaves(state.params)
-    got = sharding_mod.param_leaves(fresh.params)
-    if not all(torch.equal(a, b) for a, b in zip(want, got)):
-        raise AssertionError('distributed checkpoint: parameters differ')
-    if (fresh.opt_state.state_dict()['param_groups']
-            != state.opt_state.state_dict()['param_groups']):
-        raise AssertionError('distributed checkpoint: param_groups differ')
-    print(f'distributed checkpoint (torch.distributed.checkpoint, DTensor '
-          f'shards): {len(want)} parameter tensors restored bit for bit')
-
-
-def write_mol2(path, z, xyz):
-    lines = ['@<TRIPOS>MOLECULE', 'ligand', f' {len(z)} 0 1', 'SMALL',
-             '@<TRIPOS>ATOM']
-    for i, (zi, (x, y, w)) in enumerate(zip(z, xyz)):
-        sym = ELEMENT_SYMBOLS[int(zi)]
-        lines.append(f'{i + 1:7d} {sym}{i + 1:<5d} {x:10.4f} {y:10.4f} '
-                     f'{w:10.4f} {sym} 1 LIG 0.0000')
-    Path(path).write_text('\n'.join(lines) + '\n')
-
-
-def write_pdb(path, z, xyz, box):
-    edge = np.linalg.norm(box, axis=1)
-    lines = [f'CRYST1{edge[0]:9.3f}{edge[1]:9.3f}{edge[2]:9.3f}'
-             f'{90.0:7.2f}{90.0:7.2f}{90.0:7.2f} P 1           1']
-    for i, (zi, (x, y, w)) in enumerate(zip(z, xyz)):
-        sym = ELEMENT_SYMBOLS[int(zi)]
-        lines.append(f'HETATM{i + 1:5d} {sym:<4s} HOH A{i // 3 + 1:4d}    '
-                     f'{x:8.3f}{y:8.3f}{w:8.3f}  1.00  0.00          '
-                     f'{sym:>2s}')
-    Path(path).write_text('\n'.join(lines + ['END']) + '\n')
-
-
-def host_utilities_check(basis):
-    """(e) The native loader on a mol2 and a PDB this script writes, and
-    the capacity planner on water-2.6k, against the Python loaders and the
-    numpy planner."""
-    if native.get_lib() is None:
-        raise AssertionError('the native host library did not build (g++)')
-    ligands = np.load(LIGANDS)
-    water = make_water_box(MOLECULES, seed=SEED)
-    with tempfile.TemporaryDirectory() as tmp:
-        mol2, pdb = f'{tmp}/2iuz.mol2', f'{tmp}/water.pdb'
-        write_mol2(mol2, ligands['2iuz_atomic_numbers'],
-                   ligands['2iuz_positions'])
-        write_pdb(pdb, water.atomic_numbers, water.positions, water.box)
-        for path, py in ((mol2, utils_io.load_mol2(mol2)),
-                         (pdb, utils_io.load_pdb(pdb))):
-            nat = native.load_molecule(path)
-            if not (np.array_equal(nat.atomic_numbers, py.atomic_numbers)
-                    and np.allclose(nat.positions, py.positions, atol=1e-5,
-                                    rtol=0)
-                    and (py.box is None) == (nat.box is None)
-                    and (py.box is None
-                         or np.allclose(nat.box, py.box, atol=1e-4, rtol=0))):
-                raise AssertionError(f'native loader differs on {path}')
-    if not np.array_equal(nat.atomic_numbers, water.atomic_numbers):
-        raise AssertionError('the PDB round trip changed the elements')
-    args = (water.positions, water.box, basis.radial_cutoff,
-            basis.angular_cutoff, basis.radial_cutoff)
-    got = native._counts_native(native.get_lib(), *args)
-    want = native._counts_numpy(*args)
-    if got != want:
-        raise AssertionError(f'plan_capacities: native {got} != numpy {want}')
-    print(f'host utilities: native load_molecule equals load_mol2 on 2iuz '
-          f'({len(ligands["2iuz_atomic_numbers"])} atoms) and load_pdb on '
-          f'water-2.6k ({len(water.positions)} atoms, CRYST1 box); '
-          f'plan_capacities counts on water-2.6k native {got} = numpy {want}'
-          f', capacities {native.plan_capacities(*args[:4])}')
-
-
-def parallel_phase(basis, card):
-    """Phase 11: the parallel layer over NCCL at world size 1, the
-    distributed checkpoint, the host utilities."""
-    params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
-                             basis, num_models=8,
-                             self_energies=np.linspace(-40, -1, 7),
-                             device=DEV)
-    with process_group('nccl'):
-        mesh = sharding_mod.make_mesh(1, model_parallel=1,
-                                      device_type='cuda')
-        window_sharded_check(basis, params, mesh, card)
-        model, state, params0, opt = train_check(basis, mesh, card)
-        other_sharded_check(basis, params, mesh, card)
-        checkpoint_check(model, state, params0, opt, mesh)
-    host_utilities_check(basis)
+    cluster = build(LARGE_MOLECULES, basis, radial_impl='cluster')[0]
+    plan = cluster.blocked_layout.cluster_plan
+    if cluster.window_radial != 'cluster' or plan is None:
+        raise AssertionError('26k: the cluster planner refused the box')
+    print(f'cluster-26k plan: ncl {plan.ncl}, jcaps {plan.jcaps}, cand_caps '
+          f'{plan.cand_caps}, kmir {plan.kmir}, col_grid {plan.col_grid}')
+    (calls,), launches = record(
+        lambda: select_and_step(cluster, params, pos, box, cell_list),
+        (clusters_mod, 'cluster_radial'))
+    if len(calls) != len(plan.present):
+        raise AssertionError(f'cluster_radial called {len(calls)} times')
+    ents = [cluster_entries(args, 'cluster-26k') for args, _ in calls]
+    for i, name in enumerate(('cluster_radial_fwd', 'cluster_radial_bwd')):
+        kernels[name] = merge([e[i] for e in ents])
+        counted[name] = launches[name]
+    return kernels, counted
 
 
 def main():
-    smi = subprocess.run(
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false',
+              file=sys.stderr)
+        sys.exit(1)
+    card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    print(smi[0])
+    print(card[0])
     torch.cuda.set_device(DEV)
 
     t_start = t0 = time.perf_counter()
@@ -2402,36 +1266,32 @@ def main():
     basis = ANIBasis.ani2x()
     params = init_ani_params(torch.Generator(device=DEV).manual_seed(SEED),
                              basis, num_models=8, device=DEV)
-    pallas_phase(basis, params)
-    model, cell_list, pos, box, kernels = window_kernel_phase(basis, params)
-
-    # Phase 5: the window main path.
-    launches, p, sel = drive('window', model, params, pos, box, cell_list)
-    steps = BLOCKS * REFRESH
-    ntiers = 1 + len(model.blocked_layout.ang_tier_caps or ())
-    require_launches('window', launches, {
-        'left_pack': BLOCKS, 'window_radial_fwd': steps,
-        'window_radial_bwd': steps, 'angular_aev_fwd': ntiers * steps,
-        'angular_aev_bwd': ntiers * steps})
-    require_exact('window', launches, fused_launches(steps, 1))
-    step_vs_plain('window', model, params, p, box, cell_list, sel)
-    for k in kernels.values():
-        k['launches'] = launches[k['name']]
-
-    window_large_phase(basis, params)
-    kernels['pme_window_fwd'], kernels['pme_window_bwd'] = config5_phase(basis)
-    kernels.update(cfconv_phase())
-    kernels.update(opt_in_phase(basis, params))
-    dense_payload_phase(basis, smi[0])
-    parallel_phase(basis, smi[0])
+    kernels, launches = {}, {}
+    for make in (lambda: window_rows(basis, params),
+                 lambda: config5_rows(basis), cfconv_rows,
+                 lambda: large_rows(basis, params)):
+        got, counted = make()
+        kernels.update(got)
+        launches.update(counted)
+    if set(kernels) != set(_kernels.LAUNCHES):
+        raise AssertionError(f'rows {sorted(kernels)} differ from the '
+                             f'kernels {sorted(_kernels.LAUNCHES)}')
+    for name, k in kernels.items():
+        k['launches'] = launches[name]
 
     print(f'chip_smoke wall time: {time.perf_counter() - t_start:.1f} s '
           '(the kernels\' build included)')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
-    print(json.dumps({'kernels': [{key: k[key] for key in keys}
-                                  for k in kernels.values()]}))
-    print(smi[0])
+    rows = [{key: kernels[name][key] for key in keys}
+            for name in _kernels.LAUNCHES]
+    for k in rows:
+        print(f"{k['name']}: kernel {k['ms']:.5f} ms (CUDA graph), plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
+              f"({k['bound_by']}), library {k['library_ms']}, launches "
+              f"{k['launches']}, max|err| {k['max_abs_err']:.3g}")
+    print(json.dumps({'kernels': rows}))
+    print(card[0])
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

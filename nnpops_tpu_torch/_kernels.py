@@ -31,17 +31,6 @@ HEADERS = ('window_walk.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
-LAUNCHES = {'angular_aev_fwd': 0, 'angular_aev_bwd': 0, 'cfconv_bwd': 0,
-            'cfconv_fwd': 0,
-            'cluster_radial_fwd': 0, 'cluster_radial_bwd': 0,
-            'fused_nn_fwd_layer1': 0, 'fused_nn_fwd_hidden': 0,
-            'fused_nn_fwdgrad_layer1': 0, 'fused_nn_fwdgrad_hidden': 0,
-            'fused_nn_fwdgrad_dx': 0,
-            'left_pack': 0, 'left_pack_lanes': 0,
-            'pair_radial_fwd': 0, 'pair_radial_bwd': 0,
-            'pme_window_fwd': 0, 'pme_window_bwd': 0,
-            'window_mask': 0, 'window_radial_fwd': 0, 'window_radial_bwd': 0}
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -111,6 +100,10 @@ _SIGNATURES = {
     'window_radial_bwd': (_P,) * 7 + (_I,) * 3 + (_P,) * 4
                          + (_I, _P, _P, _D, _D, _P),
 }
+
+# Launches by kernel name since the process started or since
+# :func:`reset_launch_counts`: one key for every C entry point.
+LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 
 _lib = None
 

@@ -7,10 +7,6 @@
   (``apply_payload``) or the (distances, indices, mask) triple of
   ``CellList.payload_distances_from_selection`` (``apply_distances``, the
   production path at large N).
-* :func:`periodic_stack` and :func:`periodic_stack_grads`: that production
-  path as the JAX package's ``bench_cfconv_periodic`` runs it (a 6-layer
-  stack at full width on a periodic box), which ``chip_smoke.py`` and
-  ``profile_step --impl cfconv`` drive.
 * :class:`SchNetModel`: a SchNet potential, species embedding ->
   interaction blocks (atomwise dense, CFConv, atomwise dense + residual)
   -> per-atom readout -> summed energy, forces by autograd; over the O(N^2)
@@ -95,74 +91,11 @@ class CFConvStack:
         return x
 
 
-class PeriodicStack(NamedTuple):
-    """The periodic CFConv workload of the JAX package's
-    ``benchmarks/bench_components.py`` ``bench_cfconv_periodic``: a 6-layer
-    stack (width 128, 50 Gaussians, 10 A cutoff, ssp) on uniform random
-    positions at density 0.1 A^-3, with a cell list of capacity 640 (the
-    density estimate plus 30 %, rounded up to 128) and 2048-row chunks."""
-    stack: CFConvStack
-    params: Tuple[CFConvParams, ...]
-    cell_list: CellList
-    positions: Tensor
-    box: Tensor
-    inputs: Tensor
-    chunk_size: Optional[int]
-
-
-def periodic_stack(num_atoms: int, device=None, seed: int = 0
-                   ) -> PeriodicStack:
-    """Build :class:`PeriodicStack` at ``num_atoms``: positions and inputs
-    from ``np.random.RandomState(seed)`` in the JAX benchmark's order,
-    weights from a ``torch.Generator`` seeded with ``seed``, on ``device``
-    (the card unless the caller says otherwise)."""
-    dev = resolve_device(device)
-    cfg = CFConvConfig(width=128, num_gaussians=50, cutoff=10.0,
-                       gaussian_width=10.0 / 49)
-    stack = CFConvStack(cfg, num_layers=6)
-    gen = torch.Generator(device=dev if dev.type == 'cuda' else 'cpu')
-    params = stack.init(gen.manual_seed(seed), device=dev)
-    rng = np.random.RandomState(seed)
-    side = (num_atoms / 0.1) ** (1 / 3)
-    box = np.diag([side] * 3).astype(np.float32)
-    pos = rng.rand(num_atoms, 3).astype(np.float32) * side
-    x = rng.randn(num_atoms, cfg.width).astype(np.float32)
-    capacity = int(4 / 3 * np.pi * cfg.cutoff ** 3 * 0.1 * 1.3)
-    capacity = -(-capacity // 128) * 128
-    return PeriodicStack(
-        stack, params, CellList.create(box, cfg.cutoff, capacity=capacity),
-        torch.tensor(pos, device=dev), torch.tensor(box, device=dev),
-        torch.tensor(x, device=dev), conv_chunk(num_atoms))
-
-
 def conv_chunk(num_atoms: int) -> Optional[int]:
     """Atom rows a chunk of the conv's plain forward and backward take
     (the card's kernels take all rows at once): 2048 above 4096 atoms
     (bounding their [rows, K, width] temporaries), else one chunk."""
     return 2048 if num_atoms > 4096 else None
-
-
-def periodic_stack_grads(w: PeriodicStack, plain: bool = False):
-    """One iteration of the workload: ``select(build_mirror=True)``, the
-    scatter-free distance payload, the stack, and the gradient of the sum
-    of its output. Returns ``(value, d_positions, d_inputs, weight
-    gradients per layer, selection)``; ``plain`` runs every layer's
-    forward and backward through their plain versions."""
-    with torch.enable_grad():
-        pos = w.positions.detach().requires_grad_(True)
-        x = w.inputs.detach().requires_grad_(True)
-        params = [CFConvParams(*(a.detach().requires_grad_(True) for a in p))
-                  for p in w.params]
-        sel = w.cell_list.select(pos, w.box, build_mirror=True)
-        d, idx, m = w.cell_list.payload_distances_from_selection(pos, w.box,
-                                                                 sel)
-        value = w.stack.apply_distances(params, d, idx, m, x, w.chunk_size,
-                                        plain=plain).sum()
-        flat = [a for p in params for a in p]
-        grads = torch.autograd.grad(value, [pos, x] + flat)
-    dw = tuple(CFConvParams(*grads[2 + 4 * i:6 + 4 * i])
-               for i in range(len(params)))
-    return value.detach(), grads[0], grads[1], dw, sel
 
 
 class DenseParams(NamedTuple):
@@ -293,8 +226,8 @@ class SchNetModel:
         """The cell list of the selection: cutoff + ``skin`` (a Verlet skin;
         reselect before an atom moves ``skin / 2``), K = the neighbors a
         sphere of that radius holds at the box's density plus 30 %, rounded
-        up to 128 (:func:`periodic_stack`'s rule); cells sized at that
-        density."""
+        up to 128 (the rule of the JAX package's
+        ``bench_cfconv_periodic``); cells sized at that density."""
         box_np = np.asarray(box.detach().cpu() if isinstance(box, Tensor)
                             else box, np.float64)
         density = len(self.species) / abs(np.linalg.det(box_np))

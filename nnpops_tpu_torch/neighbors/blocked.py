@@ -25,8 +25,7 @@ Port notes:
   PyTorch's sort-based accumulating backward instead, which serialises the
   ~100 duplicates of every slot: on an H100 (700 W) at 2,601 atoms the
   slot gather and its adjoint take 14.4 ms that way against 0.17-0.20 ms
-  with ``index_select``, where the whole force step takes ~4 ms
-  (``python3 -m nnpops_tpu_torch.profile_step`` measures both).
+  with ``index_select``, where the whole force step takes ~4 ms.
 * JAX's ``.at[idx].set(..., mode='drop')`` writes dropped atoms (slot
   ``cc + 1``) out of range on purpose. Torch raises on that, so the port
   allocates the extra rows and slices them off.

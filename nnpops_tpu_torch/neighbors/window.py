@@ -30,7 +30,7 @@ Port notes:
   window path has none of them: every gather is an ``index_select`` and
   autograd takes its adjoint (an atomic ``index_add``). Advanced indexing
   would take PyTorch's sort-based accumulating backward, measured 70x
-  slower on the payload gather (``profile_step``). ``_mirror_packed`` and
+  slower on the payload gather on an H100. ``_mirror_packed`` and
   ``_perm_gather`` are here for the cell list's scatter-free distance
   payload (``CellList.payload_distances_from_selection``, the CFConv path),
   whose adjoint is deterministic and has no atomics.

@@ -17,6 +17,8 @@
 * :data:`COUNTERS`: the port's host-to-device uploads (count and bytes),
   builds of a model's device tables and CFConv lanes, always counted;
   :func:`reset_counters` zeroes them.
+* :func:`recording`: a spy on a module's function that keeps every call's
+  arguments, so a check can replay a kernel on the inputs a path gives it.
 """
 from __future__ import annotations
 
@@ -53,6 +55,25 @@ def span(name: str):
     if not torch.autograd._profiler_enabled():
         return _NO_SPAN
     return torch.profiler.record_function('nnpops.' + name)
+
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Wrap ``module.name`` for the enclosed block so that every call's
+    ``(args, kwargs)`` is appended to ``calls``; the wrapped function still
+    runs, and the original is put back on exit, also when the block
+    raises."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
 
 
 def _cuda_device(out) -> Optional[torch.device]:

@@ -48,8 +48,8 @@ from nnpops_tpu_torch.ops.cuda_cluster import (ClusterGeometry,
 from nnpops_tpu_torch.ops.cuda_window import EMPTY_ROW
 from nnpops_tpu_torch.ops.cuda_window import FAR
 from nnpops_tpu_torch.params import from_jax_params
-from nnpops_tpu_torch.profile_step import recording
 from nnpops_tpu_torch.utils import make_triclinic_water_box, make_water_box
+from nnpops_tpu_torch.utils.profiling import recording
 
 SKIN = 0.25
 MARGIN = 1.15

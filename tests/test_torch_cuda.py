@@ -8,6 +8,7 @@ CUDA device and skips without one. On the card, from the repository root
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 
 from nnpops_tpu_torch import ANI2X_LAYER_DIMS, ANIBasis, _kernels
 from nnpops_tpu_torch.config import CFConvConfig
+from nnpops_tpu_torch.models import ani as ani_module
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,
                                          plain_energy_and_forces)
 from nnpops_tpu_torch.models.combined import ANIWithPME
@@ -35,8 +37,8 @@ from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_cfconv,
                                   cuda_select, cuda_window, cuda_zpair)
 from nnpops_tpu_torch.ops.cfconv import init_cfconv
 from nnpops_tpu_torch.ops.pme import PME
-from nnpops_tpu_torch.profile_step import recording
 from nnpops_tpu_torch.utils import make_water_box
+from nnpops_tpu_torch.utils.profiling import recording
 
 pytestmark = pytest.mark.cuda
 
@@ -1598,8 +1600,7 @@ def test_opt_in_radial_step_matches_plain(dev, radial):
 
 
 # ---------------------------------------------------------------------------
-# The dense and payload ANI paths (no kernel): the card against the CPU at
-# the gates of chip_smoke.py's phase 10.
+# The dense and payload ANI paths (no kernel): the card against the CPU.
 
 LIGANDS = np.load(__file__.rsplit('/', 1)[0] + '/data/ligands.npz')
 METHANOL_Z = (6, 1, 1, 1, 8, 1)
@@ -1736,3 +1737,422 @@ def test_window_sharded_world_size_one(dev):
                                                       sel)
     np.testing.assert_allclose(float(e), float(e_u), rtol=1e-6)
     assert float((-g - f_u).abs().max()) <= 1e-4 * float(f_u.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer's train step, sharded energies and distributed
+# checkpoint over NCCL at world size 1 (one process, one card).
+# ---------------------------------------------------------------------------
+
+TRAIN_LR = 3e-4
+TRAIN_FORCE_WEIGHT = 0.1
+
+
+def leaf_norm(tensors):
+    return float(torch.sqrt(sum((t.detach().double() ** 2).sum()
+                                for t in tensors)))
+
+
+def train_setup():
+    """ANI-2x (8 models, on the CPU) on 4 perturbed ``2iuz`` conformers,
+    energy targets 1 below the initial energies and zero forces, and an
+    SGD factory."""
+    z = LIGANDS['2iuz_atomic_numbers']
+    xyz = LIGANDS['2iuz_positions'].astype(np.float32)
+    confs = torch.tensor(xyz + 0.02 * np.random.RandomState(0).randn(
+        4, *xyz.shape).astype(np.float32))
+    model = ANIModel.from_atomic_numbers(z, ANIBasis.ani2x())
+    params0 = init_ani_params(torch.Generator().manual_seed(0),
+                              model.basis, num_models=8, device='cpu')
+    with torch.no_grad():
+        e0 = torch.stack([model.energy(params0, c) for c in confs])
+    opt = functools.partial(torch.optim.SGD, lr=TRAIN_LR)
+    return model, params0, confs, e0 - 1.0, torch.zeros_like(confs), opt
+
+
+def test_train_step_world_size_one(dev):
+    """The DP x EP train step (``parallel.sharding``) over NCCL at world
+    size 1: after one step the loss equals the plain step's on the CPU
+    (relative 1e-5), the parameters lie within 1e-4 normwise of its and
+    the update within 1e-3; over 3 steps the losses are finite and
+    fall."""
+    from nnpops_tpu_torch.dryrun import params_tree
+    from nnpops_tpu_torch.parallel import sharding
+    from nnpops_tpu_torch.parallel.launch import process_group
+    from nnpops_tpu_torch.params import from_jax_params
+    model, params0, confs, e_t, f_t, opt = train_setup()
+    start = [p.clone() for p in sharding.param_leaves(params0)]
+    ref = from_jax_params(params_tree(params0), 'cpu')      # a copy
+    ref_leaves = sharding.param_leaves(ref)
+    for p in ref_leaves:
+        p.requires_grad_(True)
+    _, ref_loss = sharding.make_train_step(model, TRAIN_FORCE_WEIGHT)(
+        sharding.TrainState(ref, opt(ref_leaves)), confs, e_t, f_t)
+    with process_group('nccl'):
+        mesh = sharding.make_mesh(1, model_parallel=1, device_type='cuda')
+        state = sharding.init_train_state(model, opt, params0, mesh)
+        step = sharding.jit_train_step(model, mesh, TRAIN_FORCE_WEIGHT)
+        batch = sharding.shard_batch(mesh, confs, e_t, f_t)
+        state, loss = step(state, *batch)
+        got = [p.detach().to('cpu', copy=True)
+               for p in sharding.param_leaves(state.params)]
+        losses = [float(loss)]
+        for _ in range(2):
+            state, loss = step(state, *batch)
+            losses.append(float(loss))
+    np.testing.assert_allclose(losses[0], float(ref_loss), rtol=1e-5)
+    want = [p.detach() for p in ref_leaves]
+    diff = leaf_norm([g - w for g, w in zip(got, want)])
+    assert diff <= 1e-4 * leaf_norm(want)
+    assert diff <= 1e-3 * leaf_norm([w - p for w, p in zip(want, start)])
+    assert np.isfinite(losses).all(), losses
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
+
+
+def test_distributed_checkpoint_world_size_one(dev, tmp_path):
+    """The train state after one step through
+    ``md.checkpoint.save_checkpoint_distributed`` and
+    ``load_checkpoint_distributed`` (DTensor shards over NCCL, world size
+    1) into a fresh state: every parameter bit for bit, the optimizer's
+    param_groups equal."""
+    from nnpops_tpu_torch.md import (load_checkpoint_distributed,
+                                     save_checkpoint_distributed)
+    from nnpops_tpu_torch.parallel import sharding
+    from nnpops_tpu_torch.parallel.launch import process_group
+    model, params0, confs, e_t, f_t, opt = train_setup()
+    start = [p.clone() for p in sharding.param_leaves(params0)]
+    with process_group('nccl'):
+        mesh = sharding.make_mesh(1, model_parallel=1, device_type='cuda')
+        state = sharding.init_train_state(model, opt, params0, mesh)
+        step = sharding.jit_train_step(model, mesh, TRAIN_FORCE_WEIGHT)
+        state, _ = step(state, *sharding.shard_batch(mesh, confs, e_t, f_t))
+        save_checkpoint_distributed(str(tmp_path / 'train_state'), state,
+                                    mesh)
+        fresh = sharding.init_train_state(model, opt, params0, mesh)
+        load_checkpoint_distributed(str(tmp_path / 'train_state'), fresh,
+                                    mesh)
+    want = sharding.param_leaves(state.params)
+    got = sharding.param_leaves(fresh.params)
+    assert len(got) == len(want)
+    assert not all(torch.equal(a.cpu(), b) for a, b in zip(want, start))
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert (fresh.opt_state.state_dict()['param_groups']
+            == state.opt_state.state_dict()['param_groups'])
+
+
+@pytest.mark.parametrize('kind', ['atom', 'tp', 'pp'])
+def test_sharded_energy_world_size_one(dev, kind):
+    """At world size 1 over NCCL, each sharded energy against its
+    unsharded counterpart on the card: ``atom_sharded_energy`` on 1hvk
+    (energy relative 1e-6, forces by autograd within 1e-4 of max|F|),
+    ``tp_ensemble_energy`` on its AEV (relative 1e-5), and the one-stage
+    ``pipeline_ensemble_energy`` (4 microbatches of [256, 256]) against
+    the layer (normwise 1e-5). ``pipeline_ani_ensemble_energy`` needs as
+    many ranks as network layers: the CPU tests run it over gloo."""
+    from nnpops_tpu_torch.parallel import sharding
+    from nnpops_tpu_torch.parallel.launch import process_group
+    params, _ = card_and_cpu_params(dev)
+    model = ANIModel.from_atomic_numbers(LIGANDS['1hvk_atomic_numbers'],
+                                         ANIBasis.ani2x())
+    pos = torch.tensor(LIGANDS['1hvk_positions'].astype(np.float32),
+                       device=dev)
+    with process_group('nccl'):
+        mesh = sharding.make_mesh(1, model_parallel=1, device_type='cuda')
+        if kind == 'atom':
+            fn = sharding.atom_sharded_energy(model, mesh, axis='dp')
+            p = pos.detach().requires_grad_(True)
+            e = fn(params, p)
+            (g,) = torch.autograd.grad(e, p)
+            e_u, f_u = model.energy_and_forces(params, pos)
+            np.testing.assert_allclose(float(e.detach()), float(e_u),
+                                       rtol=1e-6)
+            assert_normwise(-g, f_u, 1e-4)
+        elif kind == 'tp':
+            with torch.no_grad():
+                aev = model.aev(pos)
+                grouping, _ = model._device_grouping(dev)
+                e = sharding.tp_ensemble_energy(model, mesh, axis='mp')(
+                    params, aev)
+                e_u = batched_nn.ensemble_energy(params.ensemble, aev,
+                                                 grouping)
+            np.testing.assert_allclose(float(e), float(e_u), rtol=1e-5)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            w = torch.randn(1, 256, 256, generator=gen, device=dev) / 16.0
+            b = 0.1 * torch.randn(1, 256, generator=gen, device=dev)
+            x = torch.randn(1024, 256, generator=gen, device=dev)
+            with torch.no_grad():
+                y = sharding.pipeline_ensemble_energy(
+                    (256,), mesh, axis='mp', num_microbatches=4)(w, b, x)
+            assert_normwise(y, torch.relu(x @ w[0] + b[0]), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The paths at 26,010 atoms (water(8670)), where the planner turns on
+# cell-occupancy bucketing, four angular tiers and a bucketed PME plan.
+# ---------------------------------------------------------------------------
+
+LARGE_WATERS = 8670
+
+
+def frozen_steps(model, params, pos, box, cl, sel, steps=4):
+    """``steps`` force steps nudged by ``1e-6 f`` on a frozen selection:
+    every energy and force finite, no overflow at the last frame."""
+    p = pos
+    for _ in range(steps):
+        e, f = model.energy_and_forces_from_selection(params, p, box, cl,
+                                                      sel)
+        assert bool(torch.isfinite(e)) and bool(torch.isfinite(f).all())
+        assert tuple(f.shape) == (model.num_atoms, 3)
+        p = p + 1e-6 * f
+    model.check_overflow(p, box, cl, sel)
+
+
+def assert_step_matches(e, f, e_ref, f_ref):
+    """A step's gate: energy relative 1e-3, max|dF| <= 5e-3 max|F|."""
+    np.testing.assert_allclose(float(e), float(e_ref), rtol=1e-3)
+    assert float((f - f_ref).abs().max()) <= 5e-3 * float(f_ref.abs().max())
+
+
+def assert_kernel_call_matches(kernel, plain, planes, rest, **kw):
+    """A recorded kernel call's differentiable planes through ``kernel``
+    and ``plain``: outputs normwise 1e-5, the gradients of the sum of the
+    squared outputs 1e-4."""
+    ins_k = [t.detach().clone().requires_grad_(True) for t in planes]
+    ins_p = [t.detach().clone().requires_grad_(True) for t in planes]
+    out_k, out_p = kernel(*ins_k, *rest, **kw), plain(*ins_p, *rest, **kw)
+    if isinstance(out_k, torch.Tensor):
+        out_k, out_p = (out_k,), (out_p,)
+    for a, b in zip(out_k, out_p):
+        assert_normwise(a.detach(), b.detach(), 1e-5)
+    g_k = torch.autograd.grad(sum(o.square().sum() for o in out_k), ins_k)
+    g_p = torch.autograd.grad(sum(o.square().sum() for o in out_p), ins_p)
+    for a, b in zip(g_k, g_p):
+        assert_normwise(a, b, 1e-4)
+
+
+def large_window_case(dev, radial):
+    """The window path (``radial`` 'window'), its pair variant or the
+    cluster path on water(8670): bucketing and four tiers planned, a
+    selection without overflow; each recorded radial kernel call (two
+    bucketed window calls, one pair call, one cluster call an i-species)
+    against its plain version; for the window path the ensemble on the
+    step's AEV rows against the per-species oracle; the step against the
+    plain step and, for 'pair' and 'cluster', the window step; then
+    frozen nudged steps."""
+    model, cl, pos, box, window_sel = window_setup(dev, LARGE_WATERS)
+    layout = model.blocked_layout
+    assert layout.small_caps is not None
+    assert len(layout.ang_tier_caps or ()) == 3
+    params = init_ani_params(torch.Generator(device=dev).manual_seed(0),
+                             model.basis, device=dev)
+    window = model
+    if radial == 'pair':
+        model = dataclasses.replace(window, window_radial='pair')
+        target = (cuda_zpair, 'pair_radial')
+    elif radial == 'cluster':
+        water = make_water_box(LARGE_WATERS, seed=0)
+        model = ANIModel.from_atomic_numbers(
+            water.atomic_numbers, model.basis, nn_dtype='bfloat16',
+            nn_impl='fused').with_blocked_layout(
+                water.positions, water.box, margin=1.15, impl='window',
+                skin=0.25, radial_impl='cluster')
+        assert model.window_radial == 'cluster'
+        plan = model.blocked_layout.cluster_plan
+        assert plan is not None
+        assert dataclasses.replace(model.blocked_layout,
+                                   cluster_plan=None) == layout
+        target = (clusters_mod, 'cluster_radial')
+    else:
+        target = (window_mod, 'window_radial')
+    sel = window_sel if radial == 'window' else model.select(pos, box, cl)
+    model.check_overflow(pos, box, cl, sel)
+    calls, feats = [], []
+    with recording(*target, calls), recording(
+            ani_module, 'ensemble_energy_grouped_rows_fused', feats):
+        e_k, f_k = model.energy_and_forces_from_selection(params, pos, box,
+                                                          cl, sel)
+    assert len(calls) == {'window': 2, 'pair': 1, 'cluster': 2}[radial]
+    for args, kw in calls:
+        if radial == 'window':
+            assert_kernel_call_matches(
+                cuda_window.window_radial, cuda_window.window_radial_plain,
+                args[:4], args[4:], **kw)
+        elif radial == 'pair':
+            assert_kernel_call_matches(
+                cuda_zpair.pair_radial, cuda_zpair.pair_radial_plain,
+                args[:3], args[3:])
+        else:
+            assert_kernel_call_matches(
+                cuda_cluster.cluster_radial,
+                cuda_cluster.cluster_radial_plain, args[:4], args[4:])
+    if radial == 'window':
+        (args, _), = feats
+        ens, x, counts = args[0], args[1].detach().contiguous(), args[2]
+        pe = cuda_nn.pack_ensemble(ens)
+        e_n, dx_n = cuda_nn.ensemble_cuda(x, pe, counts, True)
+        e_o, dx_o = cuda_nn.ensemble_oracle(ens, x, counts, True)
+        normwise(e_n, e_o, 1e-3)
+        normwise(dx_n, dx_o, 1e-2)
+    assert_step_matches(e_k, f_k, *plain_energy_and_forces(
+        model, params, pos, box, cl, sel))
+    if radial != 'window':
+        assert_step_matches(e_k, f_k, *window.energy_and_forces_from_selection(
+            params, pos, box, cl, window_sel))
+    frozen_steps(model, params, pos, box, cl, sel)
+
+
+def large_config5_case(dev):
+    """Config 5 (``models.combined.config5``) on water(8670): a bucketed
+    PME plan and four tiers; the PME window kernel on one force step's
+    recorded call against its plain version (energy relative 1e-5, the
+    gradients of the energy normwise 1e-4); then two selection blocks of
+    Langevin MD (``run_md_sticky_counts``): count maxima within their
+    capacities, no overflow, a finite state."""
+    from nnpops_tpu_torch.md import (initialize, langevin_baoab,
+                                     run_md_sticky_counts)
+    from nnpops_tpu_torch.models import combined
+    c5 = combined.config5(make_water_box(LARGE_WATERS, seed=0),
+                          ANIBasis.ani2x(), device=dev)
+    ff, cl, box, q = c5.model, c5.cell_list, c5.box, c5.charges
+    plan = ff.pme_window_plan
+    assert plan is not None and plan[2] is not None
+    assert len(ff.ani.blocked_layout.ang_tier_caps or ()) == 3
+    params = init_ani_params(torch.Generator(device=dev).manual_seed(0),
+                             ff.ani.basis, num_models=8,
+                             self_energies=combined.C5_SELF_ENERGIES,
+                             device=dev)
+
+    def select(p):
+        return ff.select(p, box, cl)
+
+    def forces(sel, p):
+        return ff.energy_and_forces_from_selection(params, p, q, box, cl, sel)
+
+    calls = []
+    with recording(cuda_pme, 'pme_window', calls):
+        forces(select(c5.positions), c5.positions)
+    (args, _), = calls
+    planes, excl, rest = args[:5], args[5], args[6:10]
+    ins_k = [t.detach().clone().requires_grad_(True) for t in planes]
+    ins_p = [t.detach().clone().requires_grad_(True) for t in planes]
+    e_k = cuda_pme.pme_window(*ins_k, excl, *rest).sum()
+    e_p = cuda_pme.pme_window_plain(*ins_p, excl, *rest).sum()
+    np.testing.assert_allclose(float(e_k.detach()), float(e_p.detach()),
+                               rtol=1e-5)
+    for a, b in zip(torch.autograd.grad(e_k, ins_k),
+                    torch.autograd.grad(e_p, ins_p)):
+        assert_normwise(a, b, 1e-4)
+    state = initialize(lambda p: forces(select(p), p), c5.positions,
+                       c5.masses, combined.C5_KT,
+                       torch.Generator(device=dev).manual_seed(1))
+    final, energies, stats = run_md_sticky_counts(
+        select, forces,
+        lambda f: langevin_baoab(f, c5.masses, combined.C5_DT,
+                                 combined.C5_FRICTION, combined.C5_KT),
+        state, 2 * combined.C5_REFRESH, combined.C5_REFRESH,
+        lambda sel, p: ff.overflow_counts(p, q, box, cl, sel))
+    ff.check_counts(stats, cl)
+    ff.check_overflow(final.positions, q, box, cl)
+    for t in (energies, final.positions, final.velocities):
+        assert bool(torch.isfinite(t).all())
+
+
+def large_mask_case(dev):
+    """``select_window(compact_impl='mask')`` on water(8670): one launch
+    each of the mask kernel and the lane left-pack and none of the
+    left-pack; each recorded call equal to its plain version; the
+    selection equal to the 'kernel' selection field by field."""
+    model, cl, pos, box, _ = window_setup(dev, LARGE_WATERS)
+    g = model.grouping
+    layout = model.blocked_layout
+    kw = dict(species=model.species_array, layout=layout,
+              radial_cutoff=model.basis.radial_cutoff,
+              angular_cutoff=model.basis.angular_cutoff,
+              grouping_order=g.order,
+              present_counts=tuple(g.counts[s] for s in layout.present),
+              need_shift_planes=True)
+    k_sel = select_window(cl, pos, box, compact_impl='kernel', **kw)
+    masks, packs = [], []
+    _kernels.reset_launch_counts()
+    with recording(window_mod, 'window_mask', masks), \
+            recording(window_mod, 'left_pack_lanes', packs):
+        m_sel = select_window(cl, pos, box, compact_impl='mask', **kw)
+    assert _kernels.LAUNCHES['window_mask'] == 1
+    assert _kernels.LAUNCHES['left_pack_lanes'] == 1
+    assert _kernels.LAUNCHES['left_pack'] == 0
+    (args, _), = masks
+    assert torch.equal(cuda_select.window_mask(*args),
+                       cuda_select.window_mask_plain(*args))
+    (args, _), = packs
+    for a, b in zip(cuda_select.left_pack_lanes(*args),
+                    cuda_select.left_pack_lanes_plain(*args)):
+        assert torch.equal(a, b)
+    fields = [('ang.' + f, getattr(k_sel.ang, f), getattr(m_sel.ang, f))
+              for f in ('order', 'slot_of_sorted', 'nbr_rad', 'rad_mask',
+                        'max_rad', 'max_ang', 'ang_in_rad')]
+    assert k_sel.tier is not None
+    for t in range(len(k_sel.tier.idx)):
+        fields += [(f'tier.{f}[{t}]', getattr(k_sel.tier, f)[t],
+                    getattr(m_sel.tier, f)[t]) for f in ('idx', 'mask')]
+    fields += [('tier.' + f, getattr(k_sel.tier, f), getattr(m_sel.tier, f))
+               for f in ('row_atom', 'tier_counts', 'concat_pos')]
+    for name, a, b in fields:
+        assert torch.equal(a, b), name
+
+
+def large_payload_case(dev):
+    """The payload path (config 3's capacities, ``aev_chunk_size=512``) on
+    water(8670): no kernel launches; frozen nudged steps finite without
+    overflow; then two blocks of two nudged steps through
+    ``md.run_md_sticky`` with ``max_angular_neighbors`` as its overflow
+    count, within the capacities."""
+    from nnpops_tpu_torch.md import MDState, run_md_sticky
+    from nnpops_tpu_torch.ops.aev import max_angular_neighbors
+    params, _ = card_and_cpu_params(dev)
+    model, cl, pos, box = payload_setup(dev, LARGE_WATERS,
+                                        aev_chunk_size=512)
+    _kernels.reset_launch_counts()
+    frozen_steps(model, params, pos, box, cl, model.select(pos, box, cl))
+
+    def nudge(force_fn):
+        def step(state):
+            x = state.positions + 1e-6 * state.forces
+            energy, forces = force_fn(x)
+            return state._replace(positions=x, forces=forces, energy=energy,
+                                  step=state.step + 1)
+        return step
+
+    e0, f0 = model.energy_and_forces_fused(params, pos, box, cl)
+    state = MDState(pos, torch.zeros_like(pos), f0, e0,
+                    torch.Generator(device=dev),
+                    torch.zeros((), dtype=torch.int32, device=dev))
+    final, energies, stats = run_md_sticky(
+        lambda p: model.select(p, box, cl),
+        lambda sel, p: model.energy_and_forces_from_selection(
+            params, p, box, cl, sel),
+        nudge, state, 4, 2,
+        lambda sel, p: max_angular_neighbors(
+            cl.payload_from_selection(p, box, sel),
+            model.basis.angular_cutoff))
+    stats.check(cl.capacity, cl.cell_capacity, model.angular_capacity)
+    assert bool(torch.isfinite(energies).all())
+    assert bool(torch.isfinite(final.forces).all())
+    assert not any(_kernels.LAUNCHES.values()), _kernels.LAUNCHES
+
+
+@pytest.mark.parametrize('path', ['window', 'pair', 'cluster', 'config5',
+                                  'mask', 'payload'])
+def test_large_path_matches_plain(dev, path):
+    """Each path at 26,010 atoms: the window path and its pair and cluster
+    radials, config 5, the 'mask' selection and the payload path (see the
+    case functions for what each holds)."""
+    if path in ('window', 'pair', 'cluster'):
+        large_window_case(dev, path)
+    elif path == 'config5':
+        large_config5_case(dev)
+    elif path == 'mask':
+        large_mask_case(dev)
+    else:
+        large_payload_case(dev)

@@ -10,15 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import PeriodicStack, periodic_stack, periodic_stack_grads
 from nnpops_tpu.config import CFConvConfig as JConfig
 from nnpops_tpu.models.schnet import CFConvStack as JStack
 from nnpops_tpu.models.schnet import SchNetModel as JSchNet
 from nnpops_tpu.neighbors.cell_list import CellList as JCellList
 from nnpops_tpu.ops.cfconv import build_cfconv_neighbors as j_build
 from nnpops_tpu_torch.config import CFConvConfig
-from nnpops_tpu_torch.models.schnet import (CFConvStack, PeriodicStack,
-                                            SchNetModel, periodic_stack,
-                                            periodic_stack_grads)
+from nnpops_tpu_torch.models.schnet import CFConvStack, SchNetModel
 from nnpops_tpu_torch.neighbors.cell_list import CellList
 from nnpops_tpu_torch.ops.cfconv import build_cfconv_neighbors
 from nnpops_tpu_torch.params import (cfconv_params_from_jax,
@@ -139,7 +138,7 @@ def test_init_shapes_and_device():
 
 
 def test_periodic_stack_matches_jax_benchmark():
-    """``models.schnet.periodic_stack`` builds the JAX package's
+    """``chip_smoke.periodic_stack`` builds the JAX package's
     ``bench_cfconv_periodic`` workload: at 26,010 atoms the same positions
     and inputs (numpy seed 0), cell grid and capacities (6x6x6, 176 slots a
     cell, 640 lanes) and 2048-row chunks; ``periodic_stack_grads`` on a

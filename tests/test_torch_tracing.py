@@ -1,5 +1,5 @@
 """The port's spans and upload counter (``utils.profiling.span``,
-``COUNTERS``) on the window path, water(150) on the CPU: with no profiler
+``COUNTERS``) and its call recorder (``recording``) on the window path, water(150) on the CPU: with no profiler
 a span is one shared no-op and never makes a ``record_function``; under
 ``torch.profiler`` a refresh block's trace holds the span tree, each
 sub-span inside its parent; and a selection's uploads and table builds
@@ -56,6 +56,29 @@ def test_span_off_is_one_shared_no_op():
     assert profiling.span('select') is profiling.span('force.aev')
     with profiling.span('select'), profiling.span('select.tiers'):
         pass
+
+
+def test_recording_keeps_calls_and_restores():
+    """``recording`` appends each call's (args, kwargs), the wrapped
+    function still runs and returns, and the original is back after the
+    block, also when the block raises."""
+    real = window.left_pack
+    calls = []
+    with profiling.recording(window, 'left_pack', calls) as got:
+        assert got is calls and window.left_pack is not real
+        keys = torch.tensor([[3, -1, 5, 7]], dtype=torch.int32)
+        out = window.left_pack(keys, (4,), caps=(2,))
+        window.left_pack(keys, (4,), (1,))
+    assert window.left_pack is real
+    for a, b in zip(out, real(keys, (4,), (2,))):
+        assert torch.equal(a, b)
+    assert [(len(args), sorted(kw)) for args, kw in calls] == [
+        (2, ['caps']), (3, [])]
+    assert calls[0][0][0] is keys and calls[1][0][2] == (1,)
+    with pytest.raises(ZeroDivisionError):
+        with profiling.recording(window, 'left_pack', calls):
+            1 / 0
+    assert window.left_pack is real and len(calls) == 2
 
 
 def test_no_record_function_without_profiler(system, monkeypatch):

@@ -31,8 +31,8 @@ from nnpops_tpu_torch.ops.cuda_select import (left_pack_lanes,
                                               left_pack_lanes_plain,
                                               window_mask, window_mask_plain)
 from nnpops_tpu_torch.ops.cuda_window import FAR
-from nnpops_tpu_torch.profile_step import recording
 from nnpops_tpu_torch.utils import make_water_box
+from nnpops_tpu_torch.utils.profiling import recording
 
 SKIN = 0.25
 MARGIN = 1.15
