@@ -25,12 +25,14 @@ ensemble, window layout with skin 0.25 A and margin 1.15, on
   ``window_radial='pair'``;
 * config5-2.6k and -26k: the PME window kernel (B.5) in one force step of
   BASELINE config 5 (``models.combined.config5``);
-* cfconv-26k: the CFConv backward (B.6) and the fused CFConv forward on
-  the layers of the JAX package's ``bench_cfconv_periodic`` chain
-  (:func:`periodic_stack`: 26,010 atoms at density 0.1, width 128, 50
-  Gaussians, 10 A cutoff, 6 layers, a 6x6x6 cell grid, 640 neighbor
-  lanes), checked on layers 1 and 6 (the forward) and on the last
-  layer's backward, timed on one layer;
+* cfconv-26k: the CFConv backward (B.6), its forces-only kernel and the
+  fused CFConv forward on the layers of the JAX package's
+  ``bench_cfconv_periodic`` chain (:func:`periodic_stack`: 26,010 atoms
+  at density 0.1, width 128, 50 Gaussians, 10 A cutoff, 6 layers, a
+  6x6x6 cell grid, 640 neighbor lanes), checked on layers 1 and 6 (the
+  forward) and on the last layer's backward, timed on one layer; the
+  forces-only kernel's inputs come from an iteration whose weights need
+  no gradient (the MD case);
 * water-26k (8,670 waters): the mask kernel and the lane left-pack (B.7)
   of ``select_window(compact_impl='mask')``, the cluster-pair radial
   kernel (B.8) of ``radial_impl='cluster'`` per i-species, and the
@@ -146,6 +148,9 @@ REPLACES = {
     'pme_window_fwd': 'nnpops_tpu/ops/pallas_pme.py:177',
     'pme_window_bwd': 'nnpops_tpu/ops/pallas_pme.py:199',
     'cfconv_bwd': 'nnpops_tpu/ops/pallas_cfconv.py:182',
+    # B.6 without the weight gradients: the same pl.pallas_call's work as
+    # MD asks for it.
+    'cfconv_bwd_forces': 'nnpops_tpu/ops/pallas_cfconv.py:182',
     'cfconv_fwd': 'none: the JAX package left the forward to XLA '
                   '(nnpops_tpu/ops/cfconv.py _fwd_rows)',
     'window_mask': 'nnpops_tpu/ops/pallas_select.py:244',
@@ -656,14 +661,16 @@ def pme_entries(args, label, calls=20):
     return fwd, bwd
 
 
-def cfconv_pair_ops(width, gaussians):
+def cfconv_pair_ops(width, gaussians, weight_grads=True):
     """Operations per valid pair of the CFConv backward, counted from
     ``csrc/cfconv_bwd.cu`` (an FMA counts two): ``(products, elementwise)``,
     the four filter products and the two weight-gradient products, 3 W^2 +
-    3 G W FMAs (the kernel runs each three times, in bf16 passes), and the
-    Gaussians (11 G), the activation, its derivative and the d_y1 / d_x /
-    d_fc terms (18 W) and the cutoff (6)."""
-    return (2 * (3 * width * width + 3 * gaussians * width),
+    3 G W FMAs (the kernels run each three times, in bf16 passes; without
+    ``weight_grads`` the four filter products alone, 2 W^2 + 2 G W), and
+    the Gaussians (11 G), the activation, its derivative and the d_y1 /
+    d_x / d_fc terms (18 W) and the cutoff (6)."""
+    products = 3 if weight_grads else 2
+    return (2 * products * (width * width + gaussians * width),
             11 * gaussians + 18 * width + 6)
 
 
@@ -772,6 +779,64 @@ def cfconv_bwd_entry(call, cfg, chunk):
           f"% of it; the f32 bound of all {prod + elem} operations "
           f"{f32_bound:.4f} ms; max|err| {err:.3g}; two launches bitwise "
           f"equal")
+    return e
+
+
+def cfconv_bwd_forces_entry(call, cfg, chunk):
+    """B.6's forces-only kernel on one recorded call of ``cfconv_bwd(...,
+    weight_grads=False)``: against its plain version (normwise 1e-4 on
+    d_dist and d_x) and against the full kernel's d_dist and d_x (bitwise:
+    the same products and f32 epilogues in the same order), timed. Bound:
+    its four filter products' three bf16 passes on the tensor cores (two
+    thirds of B.6's), or the bytes."""
+    if call[1].get('weight_grads') is not False:
+        raise AssertionError('the recorded backward asks for weight '
+                             'gradients')
+    params = tuple(a.detach() for a in call[0][0])
+    dist, mask, idx, x, g = (a.detach() for a in call[0][1:6])
+    kernel = lambda: cuda_cfconv.cfconv_bwd_cuda(  # noqa: E731
+        params, dist, mask, idx, x, g, cfg, weight_grads=False)
+    got = kernel()
+    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg,
+                                        chunk, weight_grads=False)
+    full = cuda_cfconv.cfconv_bwd_cuda(params, dist, mask, idx, x, g, cfg)
+    for i, name in ((1, 'd_dist'), (2, 'd_x')):
+        check_normwise(f'26k cfconv bwd forces {name}', got[i], want[i],
+                       1e-4)
+        if not torch.equal(got[i], full[i]):
+            raise AssertionError(f'26k cfconv bwd forces {name}: not the '
+                                 'full kernel\'s')
+    if got[0] is not None or bool(got[1][~mask].any()):
+        raise AssertionError('26k forces: weight gradients, or a nonzero '
+                             'd_dist on a masked lane')
+    err = max(max_abs(got[1], want[1]), max_abs(got[2], want[2]))
+    del got, want, full
+    pairs = int(mask.sum())
+    n, k = dist.shape
+    width, ng = cfg.width, cfg.num_gaussians
+    # Every input read once (dist, mask, idx, x, g, weights, centers), every
+    # output written once (d_dist, d_x).
+    nbytes = n * k * (4 + 1 + 4) + 2 * 4 * n * width \
+        + 4 * (ng * width + width + width * width + width + ng) \
+        + 4 * n * k + 4 * n * width
+    prod, elem = (pairs * o for o in cfconv_pair_ops(width, ng, False))
+    ops, rate = 3 * prod, peak('bf16_tensor_flops')
+    if elem / peak('fp32_flops') > ops / rate:
+        raise AssertionError('cfconv forces: the elementwise work bounds it')
+    e = entry('cfconv_bwd_forces', 'cfconv_bwd', err, kernel,
+              lambda: cuda_cfconv.cfconv_bwd_plain(
+                  params, dist, mask, idx, x, g, cfg, chunk,
+                  weight_grads=False),
+              nbytes, ops, rate, calls=2)
+    deterministic('cfconv_bwd_forces', kernel()[1:], kernel()[1:])
+    print(f"cfconv_bwd_forces: rows {n} lanes {k}, valid pairs {pairs}: "
+          f"kernel {e['ms']:.4f} ms (CUDA graph; eager {e['event_ms']:.4f} "
+          f"ms), plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+          f"(tensor cores: 3 bf16 passes of {ops} operations at "
+          f"{rate:.3g}/s; {elem} elementwise operations, {nbytes} bytes), "
+          f"{100 * e['bound_ms'] / e['ms']:.1f} % of it; max|err| "
+          f"{err:.3g}; d_dist and d_x bitwise the full kernel's; two "
+          f"launches bitwise equal")
     return e
 
 
@@ -1048,25 +1113,26 @@ def periodic_stack(num_atoms: int, device=None) -> PeriodicStack:
         torch.tensor(x, device=dev), conv_chunk(num_atoms))
 
 
-def periodic_stack_grads(w: PeriodicStack):
+def periodic_stack_grads(w: PeriodicStack, weight_grads: bool = True):
     """One iteration of the workload: ``select(build_mirror=True)``, the
     scatter-free distance payload, the stack, and the gradient of the sum
     of its output. Returns ``(value, d_positions, d_inputs, weight
-    gradients per layer, selection)``."""
+    gradients per layer, selection)``; without ``weight_grads`` the weights
+    need no gradient (the MD case) and their gradients are None."""
     with torch.enable_grad():
         pos = w.positions.detach().requires_grad_(True)
         x = w.inputs.detach().requires_grad_(True)
-        params = [CFConvParams(*(a.detach().requires_grad_(True) for a in p))
-                  for p in w.params]
+        params = [CFConvParams(*(a.detach().requires_grad_(weight_grads)
+                                 for a in p)) for p in w.params]
         sel = w.cell_list.select(pos, w.box, build_mirror=True)
         d, idx, m = w.cell_list.payload_distances_from_selection(pos, w.box,
                                                                  sel)
         value = w.stack.apply_distances(params, d, idx, m, x,
                                         w.chunk_size).sum()
-        flat = [a for p in params for a in p]
+        flat = [a for p in params for a in p] if weight_grads else []
         grads = torch.autograd.grad(value, [pos, x] + flat)
     dw = tuple(CFConvParams(*grads[2 + 4 * i:6 + 4 * i])
-               for i in range(len(params)))
+               for i in range(len(params))) if weight_grads else None
     return value.detach(), grads[0], grads[1], dw, sel
 
 
@@ -1162,7 +1228,8 @@ def config5_rows(basis):
 
 def cfconv_rows():
     """B.6 and the fused CFConv forward on the layers of one iteration of
-    the 26,010-atom chain."""
+    the 26,010-atom chain; B.6's forces-only kernel on one iteration whose
+    weights need no gradient."""
     w = periodic_stack(LARGE_MOLECULES * 3, device=DEV)
     cfg = w.stack.config
     cl = w.cell_list
@@ -1186,7 +1253,20 @@ def cfconv_rows():
     first = bwd_calls[0]
     del bwd_calls
     kernels['cfconv_bwd'] = cfconv_bwd_entry(first, cfg, w.chunk_size)
-    return kernels, {k: launches[k] for k in kernels}
+    counted = {k: launches[k] for k in kernels}
+    (bwd_calls,), launches = record(
+        lambda: periodic_stack_grads(w, weight_grads=False),
+        (cuda_cfconv, 'cfconv_bwd'))
+    if (len(bwd_calls), launches['cfconv_bwd']) != (layers, 0):
+        raise AssertionError(f'forces iteration: cfconv_bwd called '
+                             f'{len(bwd_calls)} times, the full kernel '
+                             f'launched {launches["cfconv_bwd"]} times')
+    first = bwd_calls[0]
+    del bwd_calls
+    kernels['cfconv_bwd_forces'] = cfconv_bwd_forces_entry(first, cfg,
+                                                           w.chunk_size)
+    counted['cfconv_bwd_forces'] = launches['cfconv_bwd_forces']
+    return kernels, counted
 
 
 def large_rows(basis, params):

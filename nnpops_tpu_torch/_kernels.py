@@ -47,6 +47,8 @@ _SIGNATURES = {
     # dist, mask, idx, x, g, w1, b1, w2, b2, centers, d_dist, d_x, part, dw,
     # n, k, width, g, nblocks, tanh, inv_gw, pi_rc, stream
     'cfconv_bwd': (_P,) * 14 + (_I,) * 6 + (_D, _D, _P),
+    # as cfconv_bwd without part and dw
+    'cfconv_bwd_forces': (_P,) * 12 + (_I,) * 6 + (_D, _D, _P),
     # dist, mask, idx, x, w1, b1, w2, b2, centers, out, n, k, width, g,
     # nblocks, tanh, inv_gw, pi_rc, stream
     'cfconv_fwd': (_P,) * 10 + (_I,) * 6 + (_D, _D, _P),

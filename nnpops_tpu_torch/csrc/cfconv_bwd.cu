@@ -757,6 +757,380 @@ int launch(const float* dist, const uint8_t* mask, const int* idx,
   return (int)cudaGetLastError();
 }
 
+// The forces-only kernel: the same contract without the weight gradients,
+// for when no filter weight needs one (MD, where only the positions do;
+// ops/cuda_cfconv.py PayloadConv picks it from ctx.needs_input_grad). On
+// that path it replaces cfconv_bwd_kernel and cfconv_bwd_reduce: dW1,
+// dW2, db1 and db2 cost two of the six products (36 of a tile's 108
+// m64n64k16 units a warpgroup, queued in issue order ahead of d_gauss and
+// the next tile's h), their column sums, the block partials and a second
+// launch, and autograd throws them away.
+//
+// What bounds it: the tensor cores, on the four filter products (2 W^2 +
+// 2 G W multiply-adds a valid pair, three bf16 passes each), and the f32
+// epilogues between them, which wait for their products.
+//
+// Design: cfconv_bwd_kernel's tile loop, layout and arithmetic with the
+// weight-gradient products, sums and partials taken out, so d_dist and
+// d_x are bitwise the full kernel's. The tile's chain in two rounds (h
+// with d_act, then y1 with d_gauss: d_y1 = g[i] x[j] fc needs nothing of
+// the filter) was built and measured slower on the H100 (12.14 against
+// 11.42 ms on a 26k layer): it saves only two waits a tile, and it needs
+// g[j] until the last epilogue while the stage holds the next tile's x[j],
+// so g[j] came from L2 into registers, which alone cost 0.67 ms; issuing
+// each round's second product behind the first one's epilogue gained
+// nothing.
+template <int W, bool TANH>
+__global__ void __launch_bounds__(kThreads, 1)
+cfconv_bwd_forces_kernel(const float* __restrict__ dist,
+                         const uint8_t* __restrict__ mask,
+                         const int* __restrict__ idx,
+                         const float* __restrict__ x,
+                         const float* __restrict__ gout,
+                         const float* __restrict__ w1,
+                         const float* __restrict__ b1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const float* __restrict__ centers,
+                         float* __restrict__ d_dist, float* __restrict__ d_x,
+                         const Params p) {
+  using C = Carve<W>;
+  constexpr int WP = C::WP, XS = C::XS;
+  constexpr int NH = WP / 2;           // output columns a warpgroup owns
+  constexpr int NA = NH / 2;           // accumulator floats of m64nNH
+  constexpr int NV = NH / 4;           // fragment columns a thread holds
+  constexpr int NS = NV / 8;           // columns a lane keeps after reduce
+  constexpr int KW = WP / 16;          // k-slices over the width
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* b1s = reinterpret_cast<float*>(sm + C::b1);
+  float* b2s = reinterpret_cast<float*>(sm + C::b2);
+  float* gc = reinterpret_cast<float*>(sm + C::gc);
+  float* cen = reinterpret_cast<float*>(sm + C::cen);
+  float* pd = reinterpret_cast<float*>(sm + C::pd);
+  float* pfc = reinterpret_cast<float*>(sm + C::pfc);
+  float* pdfc = reinterpret_cast<float*>(sm + C::pdfc);
+  float* sdfc = reinterpret_cast<float*>(sm + C::sdfc);
+  float* sdd = reinterpret_cast<float*>(sm + C::sdd);
+  float* xs = reinterpret_cast<float*>(sm + C::xs);
+  float* gs = reinterpret_cast<float*>(sm + C::gs);
+  float* red = reinterpret_cast<float*>(sm + C::ach);   // row-end sums
+  int* pj = reinterpret_cast<int*>(sm + C::pj);
+  int* pl = reinterpret_cast<int*>(sm + C::pl);
+  int* wc = reinterpret_cast<int*>(sm + C::wc);
+  int* list = reinterpret_cast<int*>(sm + C::list);
+  unsigned char* dyh = sm + C::xs;                 // d_y1 over the x stage
+  unsigned char* dyl = dyh + C::kTile;
+  unsigned char* dhh = sm + C::gs;                 // d_h over the g stage
+  unsigned char* dhl = dhh + C::kTile;
+  const uint32_t s0 = smem_u32(sm);
+  const uint32_t u_w1h = s0 + C::w1h, u_w1l = s0 + C::w1l;
+  const uint32_t u_w2h = s0 + C::w2h, u_w2l = s0 + C::w2l;
+  const uint32_t u_gah = s0 + C::gah, u_gal = s0 + C::gal;
+  const uint32_t u_ach = s0 + C::ach, u_acl = s0 + C::acl;
+  const uint32_t u_dyh = smem_u32(dyh), u_dyl = smem_u32(dyl);
+  const uint32_t u_dhh = smem_u32(dhh), u_dhl = smem_u32(dhl);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warpgroup(), wq = warp & 3, gq = lane >> 2, tq = lane & 3;
+  const int G = p.g, K = p.k, N = p.n;
+  const int c0 = wg * NH;              // this warpgroup's first column
+
+  // The weights, split once: w1 [kGP rows][WP], w2 [WP][WP], zero-padded.
+  for (int e = tid; e < kGP * WP; e += kThreads) {
+    const int r = e / WP, c = e % WP;
+    store_split1(sm + C::w1h, sm + C::w1l, sw_off(r, c, kGP),
+                 r < G && c < W ? w1[r * W + c] : 0.f);
+  }
+  for (int e = tid; e < WP * WP; e += kThreads) {
+    const int r = e / WP, c = e % WP;
+    store_split1(sm + C::w2h, sm + C::w2l, sw_off(r, c, WP),
+                 r < W && c < W ? w2[r * W + c] : 0.f);
+  }
+  for (int e = tid; e < WP; e += kThreads) {
+    b1s[e] = e < W ? b1[e] : 0.f;
+    b2s[e] = e < W ? b2[e] : 0.f;
+  }
+  for (int e = tid; e < kGP; e += kThreads) cen[e] = e < G ? centers[e] : 0.f;
+  fence_async_smem();
+  __syncthreads();
+
+  for (int i = blockIdx.x; i < N; i += gridDim.x) {
+    const size_t rowk = (size_t)i * K;
+    for (int e = tid; e < WP; e += kThreads)
+      gc[e] = e < W ? gout[(size_t)i * W + e] : 0.f;
+    // Compact the row's valid lanes, in lane order.
+    int count = 0;
+    for (int base = 0; base < K; base += kThreads) {
+      const int l = base + tid;
+      const bool valid = l < K && mask[rowk + l];
+      if (l < K && !valid) d_dist[rowk + l] = 0.f;
+      const unsigned bal = __ballot_sync(kFull, valid);
+      if (lane == 0) wc[warp] = __popc(bal);
+      __syncthreads();
+      int off = count;
+      for (int w = 0; w < warp; ++w) off += wc[w];
+      if (valid) list[off + __popc(bal & ((1u << lane) - 1u))] = l;
+      for (int w = 0; w < kThreads / 32; ++w) count += wc[w];
+      __syncthreads();
+    }
+
+    float dxs[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) dxs[s] = 0.f;
+
+    // Thread q < T loads lane, neighbor and distance of pair q of the next
+    // tile a tile ahead, so their latency overlaps the tile before.
+    int nl = -1, nj = -1;
+    float nd = 0.f;
+    auto fetch = [&](int q) {
+      nl = -1;
+      if (tid < kT && q < count) {
+        nl = list[q];
+        nj = idx[rowk + nl];
+        nd = dist[rowk + nl];
+      }
+    };
+    fetch(tid);
+    for (int t0 = 0; t0 < count; t0 += kT) {
+      // (a) The tile's pairs: lane, neighbor, distance, cutoff terms.
+      if (tid < kT) {
+        int j = -1;
+        float d = 0.f, fc = 0.f, dfc = 0.f;
+        if (nl >= 0) {
+          j = nj < 0 || nj >= N ? -1 : nj;  // the padding row: zero vectors
+          d = nd;
+          float s, c;
+          __sincosf(p.pi_rc * d, &s, &c);
+          fc = 0.5f * c + 0.5f;
+          dfc = -0.5f * p.pi_rc * s;
+        }
+        pj[tid] = j;
+        pl[tid] = nl;
+        pd[tid] = d;
+        pfc[tid] = fc;
+        pdfc[tid] = dfc;
+        fetch(t0 + kT + tid);
+      }
+      __syncthreads();
+      // Gather x[j] and g[j] into the stage (zeros for empty slots and
+      // padded columns); they land while the h and y1 products run.
+      // A thread copies one 16-byte column piece of every QS-th pair.
+      {
+        constexpr int CH = WP / 4, QS = kThreads / CH;
+        const int c = 4 * (tid % CH), qa = tid / CH;
+#pragma unroll
+        for (int k = 0; k < kT / QS; ++k) {
+          const int q = qa + QS * k, j = pj[q];
+          const bool ok = c < W && j >= 0;
+          const size_t off = ok ? (size_t)j * W + c : 0;
+          cp_async16(xs + q * XS + c, x + off, ok);
+          cp_async16(gs + q * XS + c, gout + off, ok);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      // (b) Gaussians, split (0 for empty slots and padded columns): a
+      // thread takes one Gaussian column of every fourth pair.
+      {
+        const int gg = tid % kGP, qa = tid / kGP;
+        const float cg = cen[gg];
+#pragma unroll 4
+        for (int k = 0; k < kT / (kThreads / kGP); ++k) {
+          const int q = qa + (kThreads / kGP) * k;
+          const float u = (pd[q] - cg) * p.inv_gw;
+          const float v = gg < G && pl[q] >= 0 ? fast_exp(-0.5f * u * u) : 0.f;
+          store_split1(sm + C::gah, sm + C::gal, sw_off(q, gg, kT), v);
+        }
+      }
+      fence_async_smem();
+      __syncthreads();
+
+      // (c) h = gauss w1 + b1 -> act (hi/lo tile), act' (registers).
+      float acc[NA], actd[NA];
+#pragma unroll
+      for (int v = 0; v < NA; ++v) acc[v] = 0.f;
+      wgmma_fence();
+      gemm3<0, 1, NH, kGP / 16>(acc, u_gah, u_gal, kT, 0, u_w1h, u_w1l, kGP,
+                                c0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int jj = 0; jj < NH / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wq + gq + 8 * h, c = c0 + 8 * jj + 2 * tq;
+          const float2 bias = *reinterpret_cast<const float2*>(b1s + c);
+          float a2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = 4 * jj + 2 * h + e;
+            const float hv = acc[v] + (e ? bias.y : bias.x);
+            if constexpr (TANH) {
+              a2[e] = tanhf(hv);
+              actd[v] = 1.f - a2[e] * a2[e];
+            } else {
+              const float z = fast_exp(-fabsf(hv));    // shared exp(-|h|)
+              a2[e] = fmaxf(hv, 0.f) + fast_log(1.f + z) - kLn2;
+              actd[v] = (hv >= 0.f ? 1.f : z) * fast_rcp(1.f + z);
+            }
+          }
+          store_split(sm + C::ach, sm + C::acl, sw_off(r, c, kT), a2[0],
+                      a2[1]);
+        }
+      fence_async_smem();
+      __syncthreads();
+
+      // (d) y1 = act w2 + b2; with the gathered rows: d_y1, d_fc, d_x.
+#pragma unroll
+      for (int v = 0; v < NA; ++v) acc[v] = 0.f;
+      wgmma_fence();
+      gemm3<0, 1, NH, KW>(acc, u_ach, u_acl, kT, 0, u_w2h, u_w2l, WP, c0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      {
+        float cs[NV], dfc2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < NV; ++q) cs[q] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < NH / 8; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * wq + gq + 8 * h, c = c0 + 8 * jj + 2 * tq;
+            const float fc = pfc[r];
+            const float2 xv = *reinterpret_cast<const float2*>(xs + r * XS + c);
+            const float2 gv = *reinterpret_cast<const float2*>(gs + r * XS + c);
+            const float2 bias = *reinterpret_cast<const float2*>(b2s + c);
+            const float2 gi = *reinterpret_cast<const float2*>(gc + c);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int v = 4 * jj + 2 * h + e;
+              const float y = acc[v] + (e ? bias.y : bias.x);
+              const float t = (e ? gi.y : gi.x) * (e ? xv.y : xv.x);
+              dfc2[h] = fmaf(t, y, dfc2[h]);
+              cs[2 * jj + e] = fmaf(y * fc, e ? gv.y : gv.x, cs[2 * jj + e]);
+              acc[v] = t * fc;                          // d_y1
+            }
+          }
+        reduce_scatter<NV>(cs, lane);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) dxs[s] += cs[s];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float s = dfc2[h];
+          s += __shfl_xor_sync(kFull, s, 1);
+          s += __shfl_xor_sync(kFull, s, 2);
+          if (tq == 0) sdfc[wg * kT + 16 * wq + gq + 8 * h] = s;
+        }
+      }
+      __syncthreads();                 // the x stage is read: d_y1 over it
+#pragma unroll
+      for (int jj = 0; jj < NH / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wq + gq + 8 * h, c = c0 + 8 * jj + 2 * tq;
+          store_split(dyh, dyl, sw_off(r, c, kT), acc[4 * jj + 2 * h],
+                      acc[4 * jj + 2 * h + 1]);
+        }
+      fence_async_smem();
+      __syncthreads();
+
+      // (e) d_act = d_y1 w2^T -> d_h = d_act act'.
+#pragma unroll
+      for (int v = 0; v < NA; ++v) acc[v] = 0.f;
+      wgmma_fence();
+      gemm3<0, 0, NH, KW>(acc, u_dyh, u_dyl, kT, 0, u_w2h, u_w2l, WP, c0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int v = 0; v < NA; ++v) acc[v] *= actd[v];          // d_h
+#pragma unroll
+      for (int jj = 0; jj < NH / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wq + gq + 8 * h, c = c0 + 8 * jj + 2 * tq;
+          store_split(dhh, dhl, sw_off(r, c, kT), acc[4 * jj + 2 * h],
+                      acc[4 * jj + 2 * h + 1]);
+        }
+      fence_async_smem();
+      __syncthreads();
+
+      // (f) d_gauss = d_h w1^T -> d_dist.
+      {
+        float ag[16];
+#pragma unroll
+        for (int v = 0; v < 16; ++v) ag[v] = 0.f;
+        wgmma_fence();
+        gemm3<0, 0, 32, KW>(ag, u_dhh, u_dhl, kT, 0, u_w1h, u_w1l, kGP,
+                            32 * wg);
+        wgmma_commit();
+        wgmma_wait<0>();
+        float s2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * wq + gq + 8 * h;
+            // Columns gg >= G hold exact zeros (w1's padded rows are 0).
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int gg = 32 * wg + 8 * jj + 2 * tq + e;
+              const float u = (pd[r] - cen[gg]) * p.inv_gw;
+              s2[h] = fmaf(ag[4 * jj + 2 * h + e] * fast_exp(-0.5f * u * u),
+                           -u * p.inv_gw, s2[h]);
+            }
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float s = s2[h];
+          s += __shfl_xor_sync(kFull, s, 1);
+          s += __shfl_xor_sync(kFull, s, 2);
+          if (tq == 0) sdd[wg * kT + 16 * wq + gq + 8 * h] = s;
+        }
+      }
+      __syncthreads();
+      if (tid < kT && pl[tid] >= 0)
+        d_dist[rowk + pl[tid]] = (sdd[tid] + sdd[kT + tid]) +
+                                 (sdfc[tid] + sdfc[kT + tid]) * pdfc[tid];
+    }
+
+    // The row's d_x: the warps' column sums, added in warp order.
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      red[warp * WP + c0 + col_of(gq * NS + s, tq)] = dxs[s];
+    __syncthreads();
+    for (int e = tid; e < W; e += kThreads) {
+      const int w0 = 4 * (e / NH);
+      float s = 0.f;
+      for (int w = 0; w < 4; ++w) s += red[(w0 + w) * WP + e];
+      d_x[(size_t)i * W + e] = s;
+    }
+    __syncthreads();
+  }
+}
+
+template <int W>
+int launch_forces(const float* dist, const uint8_t* mask, const int* idx,
+                  const float* x, const float* gout, const float* w1,
+                  const float* b1, const float* w2, const float* b2,
+                  const float* centers, float* d_dist, float* d_x,
+                  int nblocks, bool tanh_act, const Params& p,
+                  cudaStream_t stream) {
+  const int smem = Carve<W>::bytes(p.k);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const auto kernel = tanh_act ? cfconv_bwd_forces_kernel<W, true>
+                               : cfconv_bwd_forces_kernel<W, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nblocks, kThreads, smem, stream>>>(dist, mask, idx, x, gout, w1,
+                                              b1, w2, b2, centers, d_dist,
+                                              d_x, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -795,6 +1169,40 @@ int cfconv_bwd(const float* dist, const uint8_t* mask, const int* idx,
       return launch<128>(dist, mask, idx, x, gout, w1, b1, w2, b2, centers,
                          d_dist, d_x, part, dw, n, k, g, nblocks, tanh_act,
                          p, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// As cfconv_bwd without the weight gradients (and so without part and
+// dw): d_dist [n, k] and d_x [n, width], one launch.
+int cfconv_bwd_forces(const float* dist, const uint8_t* mask, const int* idx,
+                      const float* x, const float* gout, const float* w1,
+                      const float* b1, const float* w2, const float* b2,
+                      const float* centers, float* d_dist, float* d_x, int n,
+                      int k, int width, int g, int nblocks, int tanh_act,
+                      double inv_gw, double pi_rc, void* stream) {
+  if (n < 1 || k < 1 || g < 1 || g > kGP || nblocks < 1 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gout)) % 16)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.n = n;
+  p.k = k;
+  p.g = g;
+  p.inv_gw = (float)inv_gw;
+  p.pi_rc = (float)pi_rc;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (width) {
+    case 32:
+      return launch_forces<32>(dist, mask, idx, x, gout, w1, b1, w2, b2,
+                               centers, d_dist, d_x, nblocks, tanh_act, p, s);
+    case 64:
+      return launch_forces<64>(dist, mask, idx, x, gout, w1, b1, w2, b2,
+                               centers, d_dist, d_x, nblocks, tanh_act, p, s);
+    case 128:
+      return launch_forces<128>(dist, mask, idx, x, gout, w1, b1, w2, b2,
+                                centers, d_dist, d_x, nblocks, tanh_act, p,
+                                s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -18,7 +18,12 @@ zeros on masked lanes), ``mask [N, K]`` bool and ``idx [N, K]`` int32
 * backward, recomputing the filter: the four weight gradients, the
   distance cotangent and the input-gradient rows by self-adjointness
   (``d_x[i] = sum_l y2[i, l] * g[idx[i, l]]``, exact when the directed
-  list holds both directions of every pair).
+  list holds both directions of every pair). With ``weight_grads=False``
+  (what ``PayloadConv`` asks for when no filter weight needs a gradient,
+  as in MD, where only the positions do) the weight gradients are not
+  computed and come back as ``None``; on the card that is the
+  forces-only kernel (``cfconv_bwd_forces``), with no weight-gradient
+  products and no partial-sum reduction.
 
 Dispatch, both directions: a CPU tensor runs the plain version (the
 backward's is the JAX ``_bwd_rows`` chunk algebra); a CUDA tensor launches
@@ -36,7 +41,8 @@ backward kernel runs its six products on the tensor cores in three bf16
 passes (``hi.hi + hi.lo + lo.hi`` of ``hi = bf16(a)``, ``lo = bf16(a -
 hi)``, f32 accumulation), about 2^-16 relative per product where the
 Pallas kernel computes in f32; ``dtype=SPLIT3`` makes the plain version
-emulate that arithmetic (for tests).
+emulate that arithmetic (for tests). The forces-only kernel runs the
+remaining four products the same way.
 """
 from __future__ import annotations
 
@@ -127,9 +133,10 @@ def conv_fwd_plain(params, dist: Tensor, mask: Tensor, idx: Tensor,
     return torch.cat(out)
 
 
-def _bwd_rows(params, d, m, i, x_pad, g_pad, gc, config, dtype):
-    """One chunk of the backward (the JAX ``_bwd_rows``): (dW partials,
-    d_dist rows, d_x rows)."""
+def _bwd_rows(params, d, m, i, x_pad, g_pad, gc, config, dtype,
+              weight_grads=True):
+    """One chunk of the backward (the JAX ``_bwd_rows``): (dW partials, or
+    None without ``weight_grads``, d_dist rows, d_x rows)."""
     w1, b1, w2, b2 = params
     u, gauss, h, act, y1, fc, y2 = filter_fwd(params, d, m, config, dtype)
     bk = d.shape[0] * d.shape[1]
@@ -141,36 +148,39 @@ def _bwd_rows(params, d, m, i, x_pad, g_pad, gc, config, dtype):
     d_y1 = d_y2 * fc[..., None]
     d_fc = torch.sum(d_y2 * y1, -1)                             # [B, K]
     d2 = d_y1.reshape(bk, w)
-    d_w2 = _mm(act.reshape(bk, w).t(), d2, dtype)
-    d_b2 = torch.sum(d2, 0)
     d_act = _mm(d2, w2.t(), dtype).reshape(h.shape)
     if config.activation == 'ssp':
         d_h = d_act * torch.sigmoid(h)
     else:
         d_h = d_act * (1.0 - act * act)
     dh2 = d_h.reshape(bk, w)
-    d_w1 = _mm(gauss.reshape(bk, -1).t(), dh2, dtype)
-    d_b1 = torch.sum(dh2, 0)
     d_gauss = _mm(dh2, w1.t(), dtype).reshape(gauss.shape)
     gw = config.gaussian_width
     pi_rc = math.pi / config.cutoff
     d_d = torch.sum(d_gauss * gauss * (-u / gw), -1)
     d_d = d_d + d_fc * torch.where(m, -0.5 * pi_rc * torch.sin(pi_rc * d),
                                    0.0)
-    return ((d_w1, d_b1, d_w2, d_b2), torch.where(m, d_d, 0.0), d_x_rows)
+    dw = None
+    if weight_grads:
+        dw = (_mm(gauss.reshape(bk, -1).t(), dh2, dtype), torch.sum(dh2, 0),
+              _mm(act.reshape(bk, w).t(), d2, dtype), torch.sum(d2, 0))
+    return dw, torch.where(m, d_d, 0.0), d_x_rows
 
 
 def cfconv_bwd_plain(params, dist: Tensor, mask: Tensor, idx: Tensor,
                      x: Tensor, g: Tensor, config: CFConvConfig,
-                     chunk_size: Optional[int] = None, dtype=None):
-    """Plain version of the kernel: ``((dW1, db1, dW2, db2), d_dist, d_x)``,
-    chunked over atom rows, weight gradients summed in chunk order."""
+                     chunk_size: Optional[int] = None, dtype=None,
+                     weight_grads: bool = True):
+    """Plain version of the kernels: ``((dW1, db1, dW2, db2), d_dist,
+    d_x)``, chunked over atom rows, weight gradients summed in chunk order;
+    ``(None, d_dist, d_x)`` without ``weight_grads``."""
     x_pad, g_pad = _pad_row(x), _pad_row(g)
     dw, d_dist, d_x = None, [], []
     for s in _row_chunks(x.shape[0], chunk_size):
         pw, dd, dx = _bwd_rows(params, dist[s], mask[s], idx[s], x_pad,
-                               g_pad, g[s], config, dtype)
-        dw = pw if dw is None else tuple(a + b for a, b in zip(dw, pw))
+                               g_pad, g[s], config, dtype, weight_grads)
+        if weight_grads:
+            dw = pw if dw is None else tuple(a + b for a, b in zip(dw, pw))
         d_dist.append(dd)
         d_x.append(dx)
     return dw, torch.cat(d_dist), torch.cat(d_x)
@@ -257,9 +267,11 @@ def cfconv_fwd(params, dist: Tensor, mask: Tensor, idx: Tensor, x: Tensor,
 
 
 def cfconv_bwd_cuda(params, dist: Tensor, mask: Tensor, idx: Tensor,
-                    x: Tensor, g: Tensor, config: CFConvConfig):
+                    x: Tensor, g: Tensor, config: CFConvConfig,
+                    weight_grads: bool = True):
     """Launch the kernel (and its partial-sum reduction) over all rows:
-    ``((dW1, db1, dW2, db2), d_dist, d_x)``."""
+    ``((dW1, db1, dW2, db2), d_dist, d_x)``; without ``weight_grads`` the
+    forces-only kernel, one launch: ``(None, d_dist, d_x)``."""
     _check_inputs(params, dist, mask, idx, x, config, g)
     w1, b1, w2, b2 = params
     n, k = dist.shape
@@ -270,19 +282,26 @@ def cfconv_bwd_cuda(params, dist: Tensor, mask: Tensor, idx: Tensor,
                                     config.gaussian_positions),
                               torch.float32, dev)
     nblocks = _num_blocks(dev, n)
-    size = ng * wd + wd + wd * wd + wd
     d_dist = torch.empty_like(dist)
     d_x = torch.empty_like(x)
+    common = (n, k, wd, ng, nblocks, int(config.activation == 'tanh'),
+              1.0 / config.gaussian_width, math.pi / config.cutoff,
+              _kernels.stream_handle(dev))
+    if not weight_grads:
+        _kernels.launch(
+            'cfconv_bwd_forces', dist.data_ptr(), mask.data_ptr(),
+            idx.data_ptr(), x.data_ptr(), g.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), centers.data_ptr(),
+            d_dist.data_ptr(), d_x.data_ptr(), *common)
+        return None, d_dist, d_x
+    size = ng * wd + wd + wd * wd + wd
     part = torch.empty(nblocks, size, dtype=torch.float32, device=dev)
     dw = torch.empty(size, dtype=torch.float32, device=dev)
     _kernels.launch(
         'cfconv_bwd', dist.data_ptr(), mask.data_ptr(), idx.data_ptr(),
         x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), centers.data_ptr(), d_dist.data_ptr(),
-        d_x.data_ptr(), part.data_ptr(), dw.data_ptr(), n, k, wd, ng,
-        nblocks, int(config.activation == 'tanh'),
-        1.0 / config.gaussian_width, math.pi / config.cutoff,
-        _kernels.stream_handle(dev))
+        d_x.data_ptr(), part.data_ptr(), dw.data_ptr(), *common)
     o1, o2 = ng * wd, ng * wd + wd
     o3 = o2 + wd * wd
     return ((dw[:o1].reshape(ng, wd), dw[o1:o2], dw[o2:o3].reshape(wd, wd),
@@ -291,26 +310,29 @@ def cfconv_bwd_cuda(params, dist: Tensor, mask: Tensor, idx: Tensor,
 
 def cfconv_bwd(params, dist: Tensor, mask: Tensor, idx: Tensor, x: Tensor,
                g: Tensor, config: CFConvConfig,
-               chunk_size: Optional[int] = None, dtype=None):
+               chunk_size: Optional[int] = None, dtype=None,
+               weight_grads: bool = True):
     """The conv's backward: the kernel on a CUDA tensor (one launch over
-    all rows, three bf16 passes a product), :func:`cfconv_bwd_plain` on a
-    CPU tensor."""
+    all rows, three bf16 passes a product; the forces-only kernel without
+    ``weight_grads``), :func:`cfconv_bwd_plain` on a CPU tensor."""
     if dist.device.type == 'cpu':
         return cfconv_bwd_plain(params, dist, mask, idx, x, g, config,
-                                chunk_size, dtype)
+                                chunk_size, dtype, weight_grads)
     if dist.device.type != 'cuda':
         raise ValueError(f'no CFConv backward kernel for device {dist.device}')
     return cfconv_bwd_cuda(tuple(p.contiguous() for p in params),
                            dist.contiguous(), mask.contiguous(),
                            idx.to(torch.int32).contiguous(), x.contiguous(),
-                           g.contiguous(), config)
+                           g.contiguous(), config, weight_grads)
 
 
 class PayloadConv(torch.autograd.Function):
     """The payload conv: forward through :func:`cfconv_fwd`, recompute-based
     backward through :func:`cfconv_bwd` (only the inputs are saved); with
     ``plain``, both directions' plain versions. Returns cotangents for
-    w1/b1/w2/b2, the distances and the inputs. First order."""
+    w1/b1/w2/b2 (``None`` when none of them needs a gradient: the
+    backward then computes none), the distances and the inputs. First
+    order."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, dist, mask, idx, x, config, chunk_size,
@@ -327,8 +349,12 @@ class PayloadConv(torch.autograd.Function):
     def backward(ctx, g):
         w1, b1, w2, b2, dist, mask, idx, x = ctx.saved_tensors
         bwd = cfconv_bwd_plain if ctx.plain else cfconv_bwd
+        weight_grads = any(ctx.needs_input_grad[:4])
         dw, d_dist, d_x = bwd((w1, b1, w2, b2), dist, mask, idx, x,
-                              g.contiguous(), *ctx.spec)
+                              g.contiguous(), *ctx.spec,
+                              weight_grads=weight_grads)
+        if dw is None:
+            dw = (None,) * 4
         return (*dw, d_dist, None, None, d_x, None, None, None, None)
 
 

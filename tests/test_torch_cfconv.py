@@ -29,6 +29,7 @@ from nnpops_tpu_torch.ops import cfconv as tcf
 from nnpops_tpu_torch.ops import cuda_cfconv
 from nnpops_tpu_torch.params import cfconv_params_from_jax
 from nnpops_tpu_torch.utils import make_water_box
+from nnpops_tpu_torch.utils.profiling import recording
 
 GOLDEN = dict(width=8, num_gaussians=5, cutoff=2.0, gaussian_width=0.5)
 PAYLOAD = dict(width=8, num_gaussians=5, cutoff=4.0, gaussian_width=0.5)
@@ -349,6 +350,43 @@ def test_cpu_payload_conv_takes_plain_forward():
                torch.zeros(w))
         with pytest.raises(ValueError, match='width'):
             cuda_cfconv.cfconv_fwd_cuda(prm, *args, torch.zeros(16, w), cfg)
+
+
+@pytest.mark.parametrize('plain', [False, True])
+def test_payload_conv_without_weight_grads(plain):
+    """Weights that need no gradient (MD: only the positions do): the
+    backward is asked for none and returns none (the card's forces-only
+    kernel), and its distance and input cotangents equal those of a run
+    whose weights need gradients, bitwise. ``weight_grads=False`` on
+    ``cfconv_bwd_plain`` gives ``(None, d_dist, d_x)``, bitwise the full
+    call's."""
+    tcfg, _, jparams, dist, mask, idx, x, g = tiny_backward_inputs()
+    args = (tuple(t(a) for a in jparams), t(dist), t(mask), t(idx), t(x),
+            t(g), tcfg, 4)
+    full = cuda_cfconv.cfconv_bwd_plain(*args)
+    dw, d_dist, d_x = cuda_cfconv.cfconv_bwd_plain(*args, weight_grads=False)
+    assert dw is None
+    assert torch.equal(d_dist, full[1]) and torch.equal(d_x, full[2])
+
+    def grads(weights_need_grad):
+        prm = tuple(t(a).requires_grad_(weights_need_grad) for a in jparams)
+        dd = t(dist).requires_grad_(True)
+        xx = t(x).requires_grad_(True)
+        calls = []
+        bwd = 'cfconv_bwd_plain' if plain else 'cfconv_bwd'
+        with recording(cuda_cfconv, bwd, calls):
+            out = cuda_cfconv.payload_conv(prm, dd, t(mask), t(idx), xx,
+                                           tcfg, 4, plain=plain)
+            got = torch.autograd.grad(out, (dd, xx), t(g))
+        (_, kwargs), = calls
+        assert kwargs['weight_grads'] is weights_need_grad
+        return got
+
+    before = dict(_kernels.LAUNCHES)
+    forces, trained = grads(False), grads(True)
+    assert dict(_kernels.LAUNCHES) == before
+    for a, b, c in zip(forces, trained, (d_dist, d_x)):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def normwise(a, b):

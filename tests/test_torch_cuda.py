@@ -20,7 +20,7 @@ from nnpops_tpu_torch.models import ani as ani_module
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,
                                          plain_energy_and_forces)
 from nnpops_tpu_torch.models.combined import ANIWithPME
-from nnpops_tpu_torch.models.schnet import CFConvStack
+from nnpops_tpu_torch.models.schnet import CFConvStack, SchNetModel
 from nnpops_tpu_torch.models.combined import \
     plain_energy_and_forces as combined_plain
 from nnpops_tpu_torch.neighbors.blocked import (BlockedLayout,
@@ -35,7 +35,7 @@ from nnpops_tpu_torch.neighbors.window import _radial_slots, select_window
 from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_cfconv,
                                   cuda_cluster, cuda_nn, cuda_pme,
                                   cuda_select, cuda_window, cuda_zpair)
-from nnpops_tpu_torch.ops.cfconv import init_cfconv
+from nnpops_tpu_torch.ops.cfconv import CFConvParams, init_cfconv
 from nnpops_tpu_torch.ops.pme import PME
 from nnpops_tpu_torch.utils import make_water_box
 from nnpops_tpu_torch.utils.profiling import recording
@@ -995,44 +995,72 @@ def cfconv_inputs(dev, cfg, k, n=37, seed=0, row_counts=()):
 
 def assert_cfconv_bwd_close(got, want):
     """Normwise: d_dist and d_x to 1e-4, the weight gradients (sums over
-    every pair) to 1e-3 of the reference's scale."""
+    every pair), where computed, to 1e-3 of the reference's scale."""
     (gw, gd, gx), (ww, wd, wx) = got, want
+    assert (gw is None) == (ww is None)
     for a, b, tol in [(gd, wd, 1e-4), (gx, wx, 1e-4)] + [
-            (a, b, 1e-3) for a, b in zip(gw, ww)]:
+            (a, b, 1e-3) for a, b in zip(gw or (), ww or ())]:
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
+def check_cfconv_bwd(params, dist, mask, idx, x, g, cfg, weight_grads):
+    """One launch of B.6, or of its forces-only kernel without
+    ``weight_grads`` (and none of the other), against the plain version;
+    masked lanes exactly 0; two launches bitwise equal; the forces-only
+    kernel's d_dist and d_x bitwise the full kernel's (the same products
+    and f32 epilogues, in the same order). Returns (kernel, plain)."""
+    names = ('cfconv_bwd', 'cfconv_bwd_forces')
+    before = [_kernels.LAUNCHES[k] for k in names]
+    got = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg,
+                                 weight_grads=weight_grads)
+    assert [_kernels.LAUNCHES[k] - b for k, b in zip(names, before)] == [
+        int(weight_grads), int(not weight_grads)]
+    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg,
+                                        weight_grads=weight_grads)
+    assert_cfconv_bwd_close(got, want)
+    assert not bool(got[1][~mask].any())          # masked lanes exactly 0
+    again = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg,
+                                   weight_grads=weight_grads)
+    for a, b in zip((*(got[0] or ()), *got[1:]),
+                    (*(again[0] or ()), *again[1:])):
+        assert torch.equal(a, b)                  # deterministic
+    if not weight_grads:
+        _, d_dist, d_x = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x,
+                                                g, cfg)
+        assert torch.equal(got[1], d_dist) and torch.equal(got[2], d_x)
+    return got, want
+
+
+WEIGHT_GRADS = pytest.mark.parametrize('weight_grads', [True, False],
+                                       ids=['full', 'forces'])
+
+
+@WEIGHT_GRADS
 @pytest.mark.parametrize('k', [100, 640])
 @pytest.mark.parametrize('activation', ['ssp', 'tanh'])
-def test_cfconv_bwd_kernel_matches_plain(dev, k, activation):
+def test_cfconv_bwd_kernel_matches_plain(dev, k, activation, weight_grads):
     cfg = cfconv_config(activation)
     params, (dist, mask, idx, x, g) = cfconv_inputs(dev, cfg, k)
-    before = _kernels.LAUNCHES['cfconv_bwd']
-    got = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
-    assert _kernels.LAUNCHES['cfconv_bwd'] == before + 1
-    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg)
-    assert_cfconv_bwd_close(got, want)
+    got, _ = check_cfconv_bwd(params, dist, mask, idx, x, g, cfg,
+                              weight_grads)
     assert not bool(got[1][5].any()) and not bool(got[2][5].any())
-    assert not bool(got[1][~mask].any())          # masked lanes exactly 0
-    again = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
-    for a, b in zip((*got[0], *got[1:]), (*again[0], *again[1:])):
-        assert torch.equal(a, b)                  # deterministic
 
 
+@WEIGHT_GRADS
 @pytest.mark.parametrize('width', [32, 64])
-def test_cfconv_bwd_kernel_other_widths(dev, width):
+def test_cfconv_bwd_kernel_other_widths(dev, width, weight_grads):
     cfg = cfconv_config('ssp', width=width, num_gaussians=8)
     params, (dist, mask, idx, x, g) = cfconv_inputs(dev, cfg, 64, n=50)
-    got = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
-    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg)
-    assert_cfconv_bwd_close(got, want)
+    check_cfconv_bwd(params, dist, mask, idx, x, g, cfg, weight_grads)
     with pytest.raises(ValueError, match='width'):
         cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g,
-                               cfconv_config(width=48))
+                               cfconv_config(width=48),
+                               weight_grads=weight_grads)
 
 
-def test_cfconv_bwd_kernel_tile_edges(dev):
+@WEIGHT_GRADS
+def test_cfconv_bwd_kernel_tile_edges(dev, weight_grads):
     """Rows with 0, 1, 63, 64, 65 and 129 valid lanes (the 64-pair tiles'
     edges and the empty row), 300 rows (not a multiple of the SM count,
     so blocks take 2 or 3 rows) and exactly 64 Gaussians (no padded
@@ -1042,15 +1070,11 @@ def test_cfconv_bwd_kernel_tile_edges(dev):
     params, (dist, mask, idx, x, g) = cfconv_inputs(
         dev, cfg, 160, n=300, seed=2, row_counts=(0, 1, 63, 64, 65, 129))
     assert 300 % torch.cuda.get_device_properties(dev).multi_processor_count
-    got = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
-    want = cuda_cfconv.cfconv_bwd_plain(params, dist, mask, idx, x, g, cfg)
-    assert_cfconv_bwd_close(got, want)
-    assert not bool(got[1][~mask].any()) and not bool(got[2][0].any())
+    got, want = check_cfconv_bwd(params, dist, mask, idx, x, g, cfg,
+                                 weight_grads)
+    assert not bool(got[2][0].any())
     for r in range(1, 6):              # every row's d_x, row by row
         assert_normwise(got[2][r], want[2][r], 1e-4)
-    again = cuda_cfconv.cfconv_bwd(params, dist, mask, idx, x, g, cfg)
-    for a, b in zip((*got[0], *got[1:]), (*again[0], *again[1:])):
-        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('width,num_gaussians', [(32, 7), (64, 64),
@@ -1128,6 +1152,42 @@ def test_cfconv_stack_kernel_matches_plain(dev):
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
     for a, b in zip(got[1:], want[1:]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+def test_schnet_force_call_takes_forces_kernel(dev):
+    """SchNet's MD force call (``select``, then
+    ``energy_and_forces_from_selection``) on water(300) at width 128, 50
+    Gaussians and a 6 A cutoff: its weights need no gradient, so each
+    layer's backward is one forces-only launch and no full one; the forces
+    within 1e-5 normwise of the same call with the CFConv weights
+    requiring grad, which takes the full kernel."""
+    water = make_water_box(300, seed=4)
+    cfg = CFConvConfig(width=128, num_gaussians=50, cutoff=6.0,
+                       gaussian_width=6.0 / 49)
+    model = SchNetModel.from_atomic_numbers(water.atomic_numbers, cfg,
+                                            elements=(1, 8),
+                                            num_interactions=2)
+    params = model.init(torch.Generator().manual_seed(5), device=dev)
+    box = torch.tensor(water.box, device=dev)
+    pos = torch.tensor(water.positions, device=dev)
+    cl = model.create_cell_list(water.box)
+    sel = model.select(pos, box, cl)
+    trained = params._replace(interactions=tuple(
+        b._replace(conv=CFConvParams(*(a.detach().clone().requires_grad_(True)
+                                       for a in b.conv)))
+        for b in params.interactions))
+    launches = []
+    for prm in (params, trained):
+        _kernels.reset_launch_counts()
+        e, f = model.energy_and_forces_from_selection(prm, pos, box, cl, sel)
+        launches.append((_kernels.LAUNCHES['cfconv_bwd_forces'],
+                         _kernels.LAUNCHES['cfconv_bwd']))
+        if prm is params:
+            e_forces, f_forces = e, f
+    assert launches == [(2, 0), (0, 2)]
+    np.testing.assert_allclose(float(e_forces), float(e), rtol=1e-6)
+    assert float(f.abs().max()) > 0
+    assert_normwise(f_forces, f, 1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,8 @@ def test_import_builds_nothing():
     from nnpops_tpu_torch import _kernels
     assert _kernels._lib is None
     assert set(_kernels.LAUNCHES) == {'angular_aev_fwd', 'angular_aev_bwd',
-                                      'cfconv_bwd', 'cfconv_fwd',
+                                      'cfconv_bwd', 'cfconv_bwd_forces',
+                                      'cfconv_fwd',
                                       'cluster_radial_fwd',
                                       'cluster_radial_bwd',
                                       'fused_nn_fwd_layer1',
