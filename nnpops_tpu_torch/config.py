@@ -152,6 +152,24 @@ class CFConvConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PaiNNConfig:
+    """PaiNN's widths (Schütt, Unke and Gastegger, ICML 2021; SchNetPack's
+    ``PaiNN``): ``width`` features F of the scalar and vector states,
+    ``num_radial`` radial functions sin(n pi d / rc) / d, n = 1 ..
+    num_radial, and the cosine ``cutoff`` rc. The port has no JAX twin of
+    it."""
+    width: int = 128
+    num_radial: int = 20
+    cutoff: float = 5.0
+
+    def __post_init__(self):
+        if self.width < 1 or self.num_radial < 1:
+            raise ValueError('width and num_radial must be positive')
+        if self.cutoff <= 0:
+            raise ValueError('cutoff must be positive')
+
+
+@dataclasses.dataclass(frozen=True)
 class PMEConfig:
     """Particle Mesh Ewald configuration (pme/pme.py:52-92)."""
     gridx: int

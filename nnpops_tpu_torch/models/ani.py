@@ -53,6 +53,7 @@ from ..ops.batched_nn import (EnsembleParams, SpeciesGrouping, build_grouping,
 from ..ops.cuda_nn import (ensemble_energy_grouped_rows_fused,
                            ensemble_energy_grouped_rows_fused_plain)
 from ..utils.profiling import COUNTERS, span
+from .md_path import with_forces
 
 def species_from_atomic_numbers(atomic_numbers,
                                 elements: Sequence[int] = ANI2X_ELEMENTS,
@@ -316,8 +317,8 @@ class ANIModel:
                           neighbors: Optional[torch.Tensor] = None,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Energy and forces = -dE/dpositions."""
-        return _with_forces(lambda p: self.energy(params, p, box, neighbors),
-                            positions)
+        return with_forces(lambda p: self.energy(params, p, box, neighbors),
+                           positions)
 
     def energy_batch(self, params: ANIParams, positions: torch.Tensor,
                      box: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -529,7 +530,7 @@ class ANIModel:
                                 positions: torch.Tensor, box: torch.Tensor,
                                 cell_list) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`energy_fused` and forces = -dE/dpositions."""
-        return _with_forces(
+        return with_forces(
             lambda p: self.energy_fused(params, p, box, cell_list), positions)
 
     def energy_and_forces_from_selection(self, params: ANIParams,
@@ -542,20 +543,9 @@ class ANIModel:
 
     def _energy_and_forces(self, params, positions, box, cell_list, sel,
                            plain: bool):
-        return _with_forces(
+        return with_forces(
             lambda p: self._energy(params, p, box, cell_list, sel, plain),
             positions)
-
-
-def _with_forces(energy_fn, positions: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(energy, -d energy / d positions) of ``energy_fn(positions)``."""
-    with span('force'), torch.enable_grad():
-        pos = positions.detach().requires_grad_(True)
-        e = energy_fn(pos)
-        with span('force.backward'):
-            (grad,) = torch.autograd.grad(e, pos)
-        return e.detach(), -grad
 
 
 def plain_energy_and_forces(model: ANIModel, params: ANIParams,

@@ -22,7 +22,6 @@ layout (``params.schnet_params_from_jax`` carries JAX weights across).
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,13 +30,12 @@ import torch
 from ..config import CFConvConfig
 from ..neighbors.cell_list import CellList, SlotSelection
 from ..neighbors.pairs import MaskedPairs
-from ..ops.aev_blocked import upload
 from ..ops.batched_nn import resolve_device
 from ..ops.cfconv import (CFConvParams, build_cfconv_neighbors, cfconv,
                           cfconv_from_payload, cfconv_masked, init_cfconv,
                           shifted_softplus)
 from ..utils.profiling import span
-from .ani import _with_forces
+from .md_path import CellListPath, species_of, with_forces
 
 Tensor = torch.Tensor
 
@@ -122,7 +120,7 @@ def _dense(p: DenseParams, x: Tensor) -> Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
-class SchNetModel:
+class SchNetModel(CellListPath):
     """SchNet potential: embedding + L interaction blocks + atomwise
     readout.
 
@@ -139,13 +137,8 @@ class SchNetModel:
                             ) -> 'SchNetModel':
         """The model of one system: species ``elements.index(z)`` for each
         atomic number."""
-        table = {int(z): k for k, z in enumerate(elements)}
-        missing = sorted({int(z) for z in atomic_numbers} - set(table))
-        if missing:
-            raise ValueError(f'atomic numbers {missing} are not among the '
-                             f'elements {list(elements)}')
-        species = tuple(table[int(z)] for z in atomic_numbers)
-        return cls(config, len(table), num_interactions, species)
+        species, num_species = species_of(atomic_numbers, elements)
+        return cls(config, num_species, num_interactions, species)
 
     def init(self, generator: torch.Generator, device=None) -> SchNetParams:
         """Random parameters drawn with ``generator`` (fan-in scaled
@@ -207,43 +200,9 @@ class SchNetModel:
             (grad,) = torch.autograd.grad(e, pos)
         return e.detach(), -grad
 
-    # ---- The cell list's MD path (a model from ``from_atomic_numbers``).
-
-    @functools.cached_property
-    def _on_device(self) -> dict:
-        """The species ids by device, uploaded once (a cache keyed on the
-        model would hash its N-element ``species`` on every lookup)."""
-        return {}
-
-    def _species_on(self, device: torch.device) -> Tensor:
-        device = torch.device(device)
-        if device not in self._on_device:
-            self._on_device[device] = upload(self.species, torch.int64,
-                                             device)
-        return self._on_device[device]
-
-    def create_cell_list(self, box, skin: float = 0.0) -> CellList:
-        """The cell list of the selection: cutoff + ``skin`` (a Verlet skin;
-        reselect before an atom moves ``skin / 2``), K = the neighbors a
-        sphere of that radius holds at the box's density plus 30 %, rounded
-        up to 128 (the rule of the JAX package's
-        ``bench_cfconv_periodic``); cells sized at that density."""
-        box_np = np.asarray(box.detach().cpu() if isinstance(box, Tensor)
-                            else box, np.float64)
-        density = len(self.species) / abs(np.linalg.det(box_np))
-        radius = self.config.cutoff + skin
-        capacity = int(4 / 3 * np.pi * radius ** 3 * density * 1.3)
-        capacity = max(1, -(-capacity // 128)) * 128
-        return CellList.create(box_np, radius, capacity=capacity,
-                               density_estimate=density)
-
-    def select(self, positions: Tensor, box: Tensor,
-               cell_list: CellList) -> SlotSelection:
-        """Freeze a neighbor selection (every pair inside the cell list's
-        cutoff + skin, with the mirror the distance payload's adjoint
-        needs) for sticky stepping."""
-        with span('select'):
-            return cell_list.select(positions, box, build_mirror=True)
+    # ---- The cell list's MD path (a model from ``from_atomic_numbers``):
+    # ``create_cell_list``, ``select``, ``overflow_counts`` and
+    # ``capacities`` are ``CellListPath``'s.
 
     def energy_and_forces_from_selection(self, params: SchNetParams,
                                          positions: Tensor, box: Tensor,
@@ -266,18 +225,4 @@ class SchNetModel:
                                                conv_chunk(len(self.species))))
             with span('force.readout'):
                 return self._readout(params, x)
-        return _with_forces(energy, positions)
-
-    def overflow_counts(self, positions: Tensor, box: Tensor,
-                        cell_list: CellList, sel: SlotSelection) -> dict:
-        """The true counts of the selection ``sel``'s capacities: neighbors
-        inside cutoff + skin of one atom, atoms in one cell."""
-        with span('counts'):
-            return {'max_neighbors': sel.max_neighbors,
-                    'max_cell_occupancy': sel.max_cell_occupancy}
-
-    @staticmethod
-    def capacities(cell_list: CellList) -> dict:
-        """The capacity each overflow count is held against."""
-        return {'max_neighbors': cell_list.capacity,
-                'max_cell_occupancy': cell_list.cell_capacity}
+        return with_forces(energy, positions)

@@ -146,6 +146,40 @@ class _DistPayload(torch.autograd.Function):
         return rows.index_select(0, inv_order), None, None, None
 
 
+class _DeltaPayload(torch.autograd.Function):
+    """Deltas (atom -> neighbor, minimum-imaged) from a frozen selection in
+    sorted-atom row space, exact zeros on masked lanes, with the
+    mirror-routed position adjoint: an entry's pos_j half is its mirrored
+    entry's pos_i half, so ``d_pos_i = sum_l (G[mirror(i, l)] - G[i, l])``
+    over row i's valid lanes (G the deltas' cotangent). Deterministic, no
+    atomics, no box cotangent."""
+
+    @staticmethod
+    def forward(ctx, p, box, sel, cc):
+        n, k = sel.nbr_slot_k.shape
+        pos_sorted = p.index_select(0, sel.order)
+        slots = _drop_scatter(cc + 1, sel.slot_of_sorted, pos_sorted, 0.0)
+        nbr = slots.index_select(0, sel.nbr_slot_k.reshape(-1)).reshape(n, k, 3)
+        deltas = minimum_image(nbr - pos_sorted[:, None, :], box)
+        ctx.save_for_backward(sel.mask, sel.mirror, sel.inv_order)
+        return torch.where(sel.mask[..., None], deltas, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, mirror, inv_order = ctx.saved_tensors
+        n, k = mask.shape
+        tot = n * k
+        g = torch.where(mask[..., None], g, 0.0).reshape(tot, 3)
+        # A valid entry whose reverse is missing (a row cut by overflow,
+        # which the counts report) loses its pos_j half.
+        mflat = mirror.reshape(-1).long()
+        has = mask.reshape(-1) & (mflat < tot)
+        gm = torch.where(has[:, None],
+                         g.index_select(0, torch.where(has, mflat, 0)), 0.0)
+        rows = torch.sum((gm - g).reshape(n, k, 3), 1)         # [N, 3]
+        return rows.index_select(0, inv_order), None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class CellList:
     """A static cell decomposition bound to one box geometry (host-built)."""
@@ -178,6 +212,20 @@ class CellList:
             cell_capacity = -(-cell_capacity // 8) * 8
         return cls(cutoff=float(cutoff), ncells=tuple(int(x) for x in ncells),
                    capacity=int(capacity), cell_capacity=int(cell_capacity))
+
+    @classmethod
+    def for_density(cls, box, num_atoms: int, radius: float) -> 'CellList':
+        """The cell list of ``num_atoms`` atoms in ``box`` at ``radius``
+        (a cutoff plus its Verlet skin): K = the neighbors a sphere of that
+        radius holds at the box's density plus 30 %, rounded up to 128 (the
+        rule of the JAX package's ``bench_cfconv_periodic``); cells sized
+        at that density."""
+        box_np = _as_numpy_box(box)
+        density = num_atoms / abs(np.linalg.det(box_np))
+        capacity = int(4 / 3 * np.pi * radius ** 3 * density * 1.3)
+        capacity = max(1, -(-capacity // 128)) * 128
+        return cls.create(box_np, radius, capacity=capacity,
+                          density_estimate=density)
 
     @property
     def num_cells(self) -> int:
@@ -425,6 +473,32 @@ class CellList:
         nbr_idx = torch.where(sel.mask, sel.slot_to_atom[sel.nbr_slot_k.long()],
                               n)
         return (dist, nbr_idx.index_select(0, sel.inv_order),
+                sel.mask.index_select(0, sel.inv_order))
+
+    def payload_deltas_from_selection(self, positions: Tensor, box: Tensor,
+                                      sel: SlotSelection):
+        """Deltas payload phase with a SCATTER-FREE position adjoint (needs
+        ``sel.mirror``: ``select(build_mirror=True)``), for consumers that
+        need each lane's direction as well as its length (PaiNN).
+
+        Returns ``(deltas [N, K, 3], indices [N, K] int32, mask [N, K])``
+        in ORIGINAL atom order, deltas atom -> neighbor (minimum-imaged,
+        exact zeros on masked lanes), the padded indices N. The adjoint is
+        ``d_pos_i = sum_l (G[mirror(i, l)] - G[i, l])``: one gather, no
+        ``index_add``, no atomics, and like the distances payload no box
+        cotangent."""
+        if sel.mirror is None:
+            raise ValueError('payload_deltas_from_selection needs a '
+                             'selection built with select(build_mirror='
+                             'True)')
+        from .window import _perm_gather
+        n = positions.shape[0]
+        cc = self.num_cells * self.cell_capacity
+        deltas_sorted = _DeltaPayload.apply(positions, box, sel, cc)
+        deltas = _perm_gather(deltas_sorted, sel.inv_order, sel.order)
+        nbr_idx = torch.where(sel.mask, sel.slot_to_atom[sel.nbr_slot_k.long()],
+                              n)
+        return (deltas, nbr_idx.index_select(0, sel.inv_order),
                 sel.mask.index_select(0, sel.inv_order))
 
     def _payload_dense(self, positions: Tensor, box: Optional[Tensor],

@@ -15,7 +15,8 @@
   the ``torch.profiler`` trace, on the profiler's clock beside the device
   activity; with no profiler running it does nothing.
 * :data:`COUNTERS`: the port's host-to-device uploads (count and bytes),
-  builds of a model's device tables and CFConv lanes, always counted;
+  builds of a model's device tables, CFConv and PaiNN lanes, always
+  counted;
   :func:`reset_counters` zeroes them.
 * :func:`recording`: a spy on a module's function that keeps every call's
   arguments, so a check can replay a kernel on the inputs a path gives it.
@@ -33,10 +34,11 @@ import torch
 # Since the process started or since :func:`reset_counters`: host-to-device
 # uploads made through ``ops.aev_blocked.upload``, builds of a model's
 # device tables (``ANIModel._device_arrays``, once per model and device),
-# and the lanes (rows x K, read from host shapes) of every convolution
-# through ``ops.cfconv.cfconv_masked``.
+# the lanes (rows x K, read from host shapes) of every convolution
+# through ``ops.cfconv.cfconv_masked`` and of every PaiNN message through
+# ``ops.painn.painn_message``.
 COUNTERS = {'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
-            'cfconv_lanes': 0}
+            'cfconv_lanes': 0, 'painn_lanes': 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -15,11 +15,12 @@ import pytest
 import torch
 
 from nnpops_tpu_torch import ANI2X_LAYER_DIMS, ANIBasis, _kernels
-from nnpops_tpu_torch.config import CFConvConfig
+from nnpops_tpu_torch.config import CFConvConfig, PaiNNConfig
 from nnpops_tpu_torch.models import ani as ani_module
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,
                                          plain_energy_and_forces)
 from nnpops_tpu_torch.models.combined import ANIWithPME
+from nnpops_tpu_torch.models.painn import PaiNNModel
 from nnpops_tpu_torch.models.schnet import CFConvStack, SchNetModel
 from nnpops_tpu_torch.models.combined import \
     plain_energy_and_forces as combined_plain
@@ -1188,6 +1189,62 @@ def test_schnet_force_call_takes_forces_kernel(dev):
     np.testing.assert_allclose(float(e_forces), float(e), rtol=1e-6)
     assert float(f.abs().max()) > 0
     assert_normwise(f_forces, f, 1e-5)
+
+
+def painn_system(dev, waters, seed=0):
+    """PaiNN at its published widths (128, 20 radial functions, 5 A, 3
+    blocks) on water(``waters``): (model, params, cell list, positions,
+    box) on ``dev``."""
+    water = make_water_box(waters, seed=seed)
+    model = PaiNNModel.from_atomic_numbers(water.atomic_numbers,
+                                           PaiNNConfig(), elements=(1, 8))
+    params = model.init(torch.Generator().manual_seed(5), device=dev)
+    cl = model.create_cell_list(water.box, skin=0.25)
+    return (model, params, cl, torch.tensor(water.positions, device=dev),
+            torch.tensor(water.box, device=dev))
+
+
+def test_painn_force_call_matches_cpu_and_repeats(dev):
+    """PaiNN's MD force call on water(300): the card's energy within 1e-6
+    and forces within 1e-5 normwise of the same call on the CPU, and two
+    calls on the card bitwise equal (the message's and the deltas
+    payload's adjoints are scatter-free: no atomics)."""
+    cpu = torch.device('cpu')
+    out = {}
+    for d in (dev, cpu):
+        model, params, cl, pos, box = painn_system(d, 300)
+        sel = model.select(pos, box, cl)
+        out[d.type] = [model.energy_and_forces_from_selection(
+            params, pos, box, cl, sel) for _ in range(2 if d == dev else 1)]
+    (e1, f1), (e2, f2) = out['cuda']
+    (e_cpu, f_cpu), = out['cpu']
+    assert float(e1) == float(e2) and torch.equal(f1, f2)
+    np.testing.assert_allclose(float(e1), float(e_cpu), rtol=1e-6)
+    assert float(f_cpu.abs().max()) > 0
+    assert_normwise(f1.cpu(), f_cpu, 1e-5)
+
+
+def test_painn_force_call_26k(dev):
+    """PaiNN's MD force call at 26,010 atoms: finite, every count within
+    its capacity; prints the force call's time and the peak memory."""
+    model, params, cl, pos, box = painn_system(dev, 8670)
+    sel = model.select(pos, box, cl)
+    counts = model.overflow_counts(pos, box, cl, sel)
+    for k, cap in model.capacities(cl).items():
+        assert 0 < int(counts[k]) <= cap, k
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    e, f = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    end.record()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(e)) and bool(torch.isfinite(f).all())
+    assert float(f.abs().max()) > 0
+    print(f'PaiNN 26k force call {start.elapsed_time(end):.1f} ms, peak '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, K '
+          f'{cl.capacity}, counts {dict((k, int(v)) for k, v in counts.items())}')
 
 
 # ---------------------------------------------------------------------------

@@ -4,17 +4,18 @@ a span is one shared no-op and never makes a ``record_function``; under
 ``torch.profiler`` a refresh block's trace holds the span tree, each
 sub-span inside its parent; and a selection's uploads and table builds
 are counted, a cold one's (every cache empty) and a warm one's (none).
-SchNet's cell-list MD path, water(300): its span tree, its CFConv lanes
-and no upload in a warm block."""
+SchNet's and PaiNN's cell-list MD paths, water(300): their span trees,
+their CFConv and PaiNN lanes and no upload in a warm block."""
 import dataclasses
 import json
 
 import pytest
 import torch
 
-from nnpops_tpu_torch.config import ANIBasis, CFConvConfig
+from nnpops_tpu_torch.config import ANIBasis, CFConvConfig, PaiNNConfig
 from nnpops_tpu_torch.md import MDState, langevin_baoab, run_md_sticky_counts
 from nnpops_tpu_torch.models.ani import ANIModel, init_ani_params
+from nnpops_tpu_torch.models.painn import PaiNNModel
 from nnpops_tpu_torch.models.schnet import SchNetModel
 from nnpops_tpu_torch.neighbors import window
 from nnpops_tpu_torch.ops.aev_blocked import device_constant
@@ -166,7 +167,8 @@ def test_selection_uploads_counted(system, monkeypatch):
     misses = device_constant.cache_info().misses
     assert misses == 9
     assert cold == {'uploads': misses + 2 + 4 + 1, 'upload_bytes': 517380,
-                    'selection_table_builds': 1, 'cfconv_lanes': 0}
+                    'selection_table_builds': 1, 'cfconv_lanes': 0,
+                    'painn_lanes': 0}
 
     lengths = []
 
@@ -179,7 +181,7 @@ def test_selection_uploads_counted(system, monkeypatch):
     model.select(pos, box, cl)
     assert profiling.COUNTERS == {'uploads': 0, 'upload_bytes': 0,
                                   'selection_table_builds': 0,
-                                  'cfconv_lanes': 0}
+                                  'cfconv_lanes': 0, 'painn_lanes': 0}
     assert lengths and max(lengths) <= model.basis.num_species + 1
     info = device_constant.cache_info()
     assert (info.misses, info.hits) == (misses, misses)
@@ -202,7 +204,7 @@ def schnet_system():
             torch.tensor(water.box))
 
 
-def _schnet_block(system):
+def _cell_list_block(system):
     model, cl, params, pos, box = system
     zeros = torch.zeros_like(pos)
     state = MDState(pos, zeros, zeros, zeros.new_zeros(()),
@@ -223,14 +225,15 @@ def test_schnet_span_tree_and_lanes(schnet_system, tmp_path):
     convolutions of each force call; profiled, its spans nest as the
     window path's do, the force phases in order."""
     model, cl, _, pos, _ = schnet_system
-    _schnet_block(schnet_system)
+    _cell_list_block(schnet_system)
     profiling.reset_counters()
-    _schnet_block(schnet_system)
+    _cell_list_block(schnet_system)
     assert profiling.COUNTERS == {
         'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
-        'cfconv_lanes': 2 * 6 * pos.shape[0] * cl.capacity}
+        'cfconv_lanes': 2 * 6 * pos.shape[0] * cl.capacity,
+        'painn_lanes': 0}
     with profiling.trace(str(tmp_path)):
-        _schnet_block(schnet_system)
+        _cell_list_block(schnet_system)
     ranges = _ranges(tmp_path / 'trace.json')
     assert {name: len(r) for name, r in ranges.items()} == {
         'md.block': 1, 'select': 1, 'force': 2, 'force.distances': 2,
@@ -244,4 +247,53 @@ def test_schnet_span_tree_and_lanes(schnet_system, tmp_path):
         assert all(_inside(r, ranges['force']) for r in ranges[name]), name
     for k in range(2):
         phases = [ranges[name][k] for name in SCHNET_FORCE]
+        assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
+
+
+PAINN_FORCE = ('force.distances', 'force.message', 'force.update',
+               'force.readout', 'force.backward')
+
+
+@pytest.fixture(scope='module')
+def painn_system():
+    water = make_water_box(300, seed=0)
+    model = PaiNNModel.from_atomic_numbers(
+        water.atomic_numbers, PaiNNConfig(width=16, num_radial=8,
+                                          cutoff=5.0), [1, 8],
+        num_interactions=2)
+    cl = model.create_cell_list(water.box, skin=SKIN)
+    params = model.init(torch.Generator().manual_seed(0), device='cpu')
+    return (model, cl, params, torch.tensor(water.positions),
+            torch.tensor(water.box))
+
+
+def test_painn_span_tree_and_lanes(painn_system, tmp_path):
+    """A warm PaiNN refresh block (a selection, two force calls, the
+    counts) uploads nothing and counts N x K lanes for each of the two
+    messages of each force call; profiled, the force call's phases nest in
+    it in order, a message and an update a block."""
+    model, cl, _, pos, _ = painn_system
+    _cell_list_block(painn_system)
+    profiling.reset_counters()
+    _cell_list_block(painn_system)
+    assert profiling.COUNTERS == {
+        'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
+        'cfconv_lanes': 0, 'painn_lanes': 2 * 2 * pos.shape[0] * cl.capacity}
+    with profiling.trace(str(tmp_path)):
+        _cell_list_block(painn_system)
+    ranges = _ranges(tmp_path / 'trace.json')
+    assert {name: len(r) for name, r in ranges.items()} == {
+        'md.block': 1, 'select': 1, 'force': 2, 'force.distances': 2,
+        'force.message': 4, 'force.update': 4, 'force.readout': 2,
+        'force.backward': 2, 'counts': 1}
+    for name in ('select', 'force'):
+        assert all(_inside(r, ranges['md.block']) for r in ranges[name])
+    for name in PAINN_FORCE:
+        assert all(_inside(r, ranges['force']) for r in ranges[name]), name
+    for k in range(2):
+        phases = ([ranges['force.distances'][k]]
+                  + [ranges[name][2 * k + b] for b in range(2)
+                     for name in ('force.message', 'force.update')]
+                  + [ranges[name][k] for name in ('force.readout',
+                                                  'force.backward')])
         assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
