@@ -33,6 +33,10 @@ ensemble, window layout with skin 0.25 A and margin 1.15, on
   forward) and on the last layer's backward, timed on one layer; the
   forces-only kernel's inputs come from an iteration whose weights need
   no gradient (the MD case);
+* painn-26k (8,670 waters, 26,010 atoms): PaiNN's fused message backward
+  on the inputs of the first backward of one force call at its published
+  widths (F 128, 20 radial functions, 5 A, 3 blocks, K 128), against the
+  plain chunked backward;
 * water-26k (8,670 waters): the mask kernel and the lane left-pack (B.7)
   of ``select_window(compact_impl='mask')``, the cluster-pair radial
   kernel (B.8) of ``radial_impl='cluster'`` per i-species, and the
@@ -63,10 +67,11 @@ import numpy as np
 import torch
 
 from nnpops_tpu_torch import ANIBasis, _kernels
-from nnpops_tpu_torch.config import CFConvConfig
+from nnpops_tpu_torch.config import CFConvConfig, PaiNNConfig
 from nnpops_tpu_torch.models import ani as ani_mod
 from nnpops_tpu_torch.models import combined as combined_mod
 from nnpops_tpu_torch.models.ani import ANIModel, init_ani_params
+from nnpops_tpu_torch.models.painn import PaiNNModel
 from nnpops_tpu_torch.models.schnet import CFConvStack, conv_chunk
 from nnpops_tpu_torch.neighbors import clusters as clusters_mod
 from nnpops_tpu_torch.neighbors import window as window_mod
@@ -74,11 +79,13 @@ from nnpops_tpu_torch.neighbors.cell_list import CellList
 from nnpops_tpu_torch.ops import (cuda_aev, cuda_cfconv, cuda_cluster,
                                   cuda_nn, cuda_pme, cuda_select,
                                   cuda_window, cuda_zpair)
+from nnpops_tpu_torch.ops import painn as painn_ops
 from nnpops_tpu_torch.ops.aev_blocked import triple_tables
 from nnpops_tpu_torch.ops.batched_nn import resolve_device
 from nnpops_tpu_torch.ops.cfconv import CFConvParams
 from nnpops_tpu_torch.utils import make_water_box
 from nnpops_tpu_torch.utils.profiling import recording
+from mdbench.reference.painn_cell_list import PAIR_BWD_PER_F, PAIR_BWD_PER_R
 
 MOLECULES = 867          # 2,601 atoms, box 29.6 A
 LARGE_MOLECULES = 8670   # 26,010 atoms, box 63.8 A
@@ -153,6 +160,7 @@ REPLACES = {
     'cfconv_bwd_forces': 'nnpops_tpu/ops/pallas_cfconv.py:182',
     'cfconv_fwd': 'none: the JAX package left the forward to XLA '
                   '(nnpops_tpu/ops/cfconv.py _fwd_rows)',
+    'painn_bwd': 'none: the JAX package has no PaiNN',
     'window_mask': 'nnpops_tpu/ops/pallas_select.py:244',
     'left_pack_lanes': 'nnpops_tpu/ops/pallas_select.py:334',
     'cluster_radial_fwd': 'nnpops_tpu/ops/pallas_cluster.py:180',
@@ -1269,6 +1277,72 @@ def cfconv_rows():
     return kernels, counted
 
 
+def painn_bwd_entry(call, chunk):
+    """PaiNN's fused backward on one recorded call of ``painn_bwd_cuda``:
+    against the plain chunked backward (normwise 1e-5 on dd, du, dphi and
+    dv, both true f32), two launches bitwise equal, timed. Bound: the FP32
+    FLOP of ``painn_bwd_roofline`` (46 F + 4 R + 6 R F a pair inside rc,
+    the filter computed again left out), or the bytes (every input read
+    once, every output written once)."""
+    args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                 for a in call[0])
+    phi_pad, v_pad, d, u, idx, live, wf, bf, gs, gv, rc = args
+    kernel = lambda: painn_ops.painn_bwd_cuda(*args)  # noqa: E731
+    plain = lambda: painn_ops.painn_bwd_plain(*args, chunk)  # noqa: E731
+    got, want = kernel(), plain()
+    for name, a, b in zip(('dd', 'du', 'dphi', 'dv'), got, want):
+        check_normwise(f'painn-26k bwd {name}', a, b, 1e-5)
+    if bool(got[0][~live].any()) or bool(got[1][~live].any()):
+        raise AssertionError('painn-26k: nonzero dd or du off the live lanes')
+    err = max(max_abs(a, b) for a, b in zip(got, want))
+    del got, want
+    pairs = int(live.sum())
+    n, k = d.shape
+    f, r = gs.shape[1], wf.shape[0]
+    nbytes = (4 * 2 * (n + 1) * 3 * f + n * k * (4 + 12 + 8 + 1)
+              + 4 * (r + 1) * 3 * f + 4 * n * 4 * f
+              + 4 * n * k * 4 + 4 * n * 6 * f)
+    ops = pairs * (PAIR_BWD_PER_F * f + PAIR_BWD_PER_R * r + 6 * r * f)
+    f32 = peak('fp32_flops')
+    e = entry('painn_bwd', 'painn_bwd', err, kernel, plain, nbytes, ops, f32,
+              calls=5)
+    deterministic('painn_bwd', kernel(), kernel())
+    print(f"painn_bwd: rows {n} lanes {k}, pairs inside rc {pairs}: kernel "
+          f"{e['ms']:.4f} ms (CUDA graph; eager {e['event_ms']:.4f} ms), "
+          f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+          f"({e['bound_by']}: {ops} FP32 operations at {f32:.3g}/s, "
+          f"{nbytes} bytes), {100 * e['bound_ms'] / e['ms']:.1f} % of it; "
+          f"max|err| {err:.3g}; two launches bitwise equal")
+    return e
+
+
+def painn_rows():
+    """PaiNN's fused backward on the first backward of one force call at
+    26,010 atoms (the last block's message, v nonzero)."""
+    water = make_water_box(LARGE_MOLECULES, seed=SEED)
+    model = PaiNNModel.from_atomic_numbers(water.atomic_numbers,
+                                           PaiNNConfig(), elements=(1, 8))
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED),
+                        device=DEV)
+    cl = model.create_cell_list(water.box, skin=SKIN)
+    pos = torch.tensor(water.positions, device=DEV)
+    box = torch.tensor(water.box, device=DEV)
+    sel = model.select(pos, box, cl)
+    print(f'painn-26k: atoms {pos.shape[0]}, width {model.config.width}, '
+          f'{model.config.num_radial} radial functions, cutoff '
+          f'{model.config.cutoff}, {model.num_interactions} blocks, capacity '
+          f'{cl.capacity}')
+    (calls,), launches = record(
+        lambda: model.energy_and_forces_from_selection(params, pos, box, cl,
+                                                       sel),
+        (painn_ops, 'painn_bwd_cuda'))
+    if len(calls) != model.num_interactions:
+        raise AssertionError(f'painn_bwd_cuda called {len(calls)} times')
+    chunk = painn_ops.chunk_rows(cl.capacity, model.config.width)
+    kernels = {'painn_bwd': painn_bwd_entry(calls[0], chunk)}
+    return kernels, {'painn_bwd': launches['painn_bwd']}
+
+
 def large_rows(basis, params):
     """At water-26k: B.7 on the 'mask' selection, B.8 per i-species on one
     selection and step of the cluster path (the rows), and the left-pack
@@ -1348,7 +1422,7 @@ def main():
                              basis, num_models=8, device=DEV)
     kernels, launches = {}, {}
     for make in (lambda: window_rows(basis, params),
-                 lambda: config5_rows(basis), cfconv_rows,
+                 lambda: config5_rows(basis), cfconv_rows, painn_rows,
                  lambda: large_rows(basis, params)):
         got, counted = make()
         kernels.update(got)

@@ -25,8 +25,8 @@ CSRC = Path(__file__).parent / 'csrc'
 BUILD_DIR = Path(__file__).parent / '_build'
 SOURCES = ('angular_aev.cu', 'cfconv_bwd.cu', 'cfconv_fwd.cu',
            'cluster_radial.cu', 'fused_nn.cu', 'left_pack.cu',
-           'pair_radial.cu', 'pme_window.cu', 'window_mask.cu',
-           'window_radial.cu')
+           'painn_bwd.cu', 'pair_radial.cu', 'pme_window.cu',
+           'window_mask.cu', 'window_radial.cu')
 HEADERS = ('window_walk.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
@@ -74,6 +74,9 @@ _SIGNATURES = {
     'left_pack': (_P,) * 3 + (_I,) * 4 + (_P,) * 3,
     # mask (uint8), lanes, counts, then as left_pack from n_rows on
     'left_pack_lanes': (_P,) * 3 + (_I,) * 4 + (_P,) * 3,
+    # phi, v, dist, u, idx, live, wf, bf, freqs, gs, gv, dd, du, dphi, dv,
+    # n, k, width, r, half_pi_rc, stream
+    'painn_bwd': (_P,) * 15 + (_I,) * 4 + (_D, _P),
     # ctr, z3, shift, out_a, out_b, nx, ny, nz, npres, row_off (host),
     # n_runs, run_first, run_len, run_sp (host: pair_runs), n_r, eta,
     # rs (host), rc, scale, stream

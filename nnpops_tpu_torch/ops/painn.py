@@ -21,18 +21,21 @@ cutoff.
 * **Saved**: the per-atom ``phi`` and ``v`` and the payload (d, u, the
   indices and the live-lane mask); the lane tensors are computed again in
   the backward.
-* **Backward**: the same chunks, each row on its own. Its lanes give the
-  cotangents of their d and u (which ``lane_geometry`` and
+* **Backward**: each row on its own. Its lanes give the cotangents of
+  their d and u (which ``lane_geometry`` and
   ``CellList.payload_deltas_from_selection`` take to the positions), and
   its own atom's d phi and d v come as gathers of the cotangents g_s, g_v
   of the atoms in its row: the list is symmetric, W_ji = W_ij and u_ji =
   -u_ij, so an entry's j half is its mirrored entry's. No ``index_add``, no
-  scatter, no atomics.
+  scatter, no atomics. On a CUDA tensor one launch of the fused kernel
+  ``csrc/painn_bwd.cu`` over all rows (:func:`painn_bwd_cuda`, true
+  float32, ``_kernels.LAUNCHES['painn_bwd']``); elsewhere the plain
+  :func:`_rows_backward` in the forward's chunks.
 * **Lanes**: padded lanes and the lanes of a Verlet skin (d >= rc) give
   exactly zero, forward and backward.
 * **Precision**: the dtype of the inputs (float32 on the MD path, with
-  TF32 off as the package sets it); the same plain PyTorch on the CPU and
-  the card.
+  TF32 off as the package sets it); the forward is the same plain PyTorch
+  on the CPU and the card, the card's backward kernel takes float32 only.
 * **Weights**: no weight gradient is computed. The MD path needs none; a
   filter weight that requires one raises, rather than being dropped.
 """
@@ -43,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import _kernels
 from ..config import PaiNNConfig
 from ..utils.profiling import COUNTERS
 from .aev_blocked import device_constant
@@ -52,6 +56,9 @@ Tensor = torch.Tensor
 
 # Bytes a [rows, K, 3F] lane temporary of the message may take.
 CHUNK_BYTES = 1 << 30
+# The widths and the radial count ``csrc/painn_bwd.cu`` is built for.
+KERNEL_WIDTHS = (32, 64, 96, 128)
+KERNEL_RADIAL = 20
 
 
 def chunk_rows(k: int, width: int, itemsize: int = 4) -> int:
@@ -71,13 +78,17 @@ def lane_geometry(deltas: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor]:
     return torch.where(mask, d, 0.0), torch.where(mask[..., None], u, 0.0)
 
 
+def _freq(r: int, rc: float, dtype, device) -> Tensor:
+    """The rbf frequencies n pi / rc, n = 1 .. r."""
+    return device_constant(tuple(n * math.pi / rc for n in range(1, r + 1)),
+                           dtype, device)
+
+
 def _filters(d: Tensor, live: Tensor, wf: Tensor, bf: Tensor, rc: float):
     """W [R, K, 3F] of the lanes, and what its adjoint needs: the safe
     lengths, the rbf arguments and values, W before the cutoff, and the
     cutoff (zero on dead lanes)."""
-    freq = device_constant(tuple(n * math.pi / rc
-                                 for n in range(1, wf.shape[0] + 1)),
-                           d.dtype, d.device)
+    freq = _freq(wf.shape[0], rc, d.dtype, d.device)
     ds = torch.where(live, d, 1.0)
     arg = ds[..., None] * freq
     rbf = torch.sin(arg) / ds[..., None]
@@ -141,6 +152,62 @@ def _rows_backward(rows: slice, phi_pad, v_pad, gs_pad, gv_pad, d, u, idx,
     return dd, du, dphi, dv
 
 
+def painn_bwd_plain(phi_pad: Tensor, v_pad: Tensor, d: Tensor, u: Tensor,
+                    idx: Tensor, live: Tensor, wf: Tensor, bf: Tensor,
+                    gs: Tensor, gv: Tensor, rc: float,
+                    rows_per_chunk: Optional[int]):
+    """(dd, du, dphi, dv) of :func:`painn_bwd_cuda`'s arguments by
+    :func:`_rows_backward` in chunks of ``rows_per_chunk`` rows: the
+    backward on a CPU tensor, and the kernel's plain version."""
+    n, f = gs.shape
+    gs_pad = _pad_row(gs)
+    gv_pad = _pad_row(gv.reshape(n, 3 * f))
+    dd, du = torch.empty_like(d), torch.empty_like(u)
+    dphi = phi_pad.new_empty(n, 3 * f)
+    dv = phi_pad.new_empty(n, 3, f)
+    for s in _row_chunks(n, rows_per_chunk):
+        dd[s], du[s], dphi[s], dv[s] = _rows_backward(
+            s, phi_pad, v_pad, gs_pad, gv_pad, d[s], u[s], idx[s], live[s],
+            wf, bf, rc)
+    return dd, du, dphi, dv
+
+
+def painn_bwd_cuda(phi_pad: Tensor, v_pad: Tensor, d: Tensor, u: Tensor,
+                   idx: Tensor, live: Tensor, wf: Tensor, bf: Tensor,
+                   gs: Tensor, gv: Tensor, rc: float):
+    """One launch of the fused backward kernel over all rows: (dd [N, K],
+    du [N, K, 3], dphi [N, 3F], dv [N, 3, F]), what :func:`painn_bwd_plain`
+    gives. ``phi_pad``, ``v_pad`` [N+1, 3F] end in a zero row,
+    ``idx`` is int64, ``live`` bool, ``gs`` [N, F], ``gv`` [N, 3, F]; every
+    tensor float32 and contiguous on the current CUDA device."""
+    n, k = d.shape
+    f, r = gs.shape[1], wf.shape[0]
+    if f not in KERNEL_WIDTHS or r != KERNEL_RADIAL:
+        raise ValueError(f'the PaiNN backward kernel takes width in '
+                         f'{KERNEL_WIDTHS} and {KERNEL_RADIAL} radial '
+                         f'functions, got width {f}, {r} radial functions')
+    f32 = torch.float32
+    shapes = ((phi_pad, (n + 1, 3 * f), f32), (v_pad, (n + 1, 3 * f), f32),
+              (d, (n, k), f32), (u, (n, k, 3), f32),
+              (idx, (n, k), torch.int64), (live, (n, k), torch.bool),
+              (wf, (r, 3 * f), f32), (bf, (3 * f,), f32), (gs, (n, f), f32),
+              (gv, (n, 3, f), f32))
+    for t, shape, dtype in shapes:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f'expected {dtype} {shape}, got {t.dtype} '
+                             f'{tuple(t.shape)}')
+    _kernels.require_cuda(*(t for t, _, _ in shapes))
+    freq = _freq(r, rc, f32, d.device)
+    dd, du = torch.empty_like(d), torch.empty_like(u)
+    dphi, dv = phi_pad.new_empty(n, 3 * f), phi_pad.new_empty(n, 3, f)
+    _kernels.launch(
+        'painn_bwd', *(t.data_ptr() for t in (
+            phi_pad, v_pad, d, u, idx, live, wf, bf, freq, gs, gv, dd, du,
+            dphi, dv)),
+        n, k, f, r, 0.5 * math.pi / rc, _kernels.stream_handle(d.device))
+    return dd, du, dphi, dv
+
+
 class PaiNNMessage(torch.autograd.Function):
     """(m_s, m_v) of one message over the deltas payload; see the module
     docstring."""
@@ -168,16 +235,15 @@ class PaiNNMessage(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gs, gv):
         phi_pad, v_pad, d, u, idx, live, wf, bf = ctx.saved_tensors
-        n, f = gs.shape
-        gs_pad = _pad_row(gs)
-        gv_pad = _pad_row(gv.reshape(n, 3 * f))
-        dd, du = torch.empty_like(d), torch.empty_like(u)
-        dphi = phi_pad.new_empty(n, 3 * f)
-        dv = phi_pad.new_empty(n, 3, f)
-        for s in _row_chunks(n, ctx.rows_per_chunk):
-            dd[s], du[s], dphi[s], dv[s] = _rows_backward(
-                s, phi_pad, v_pad, gs_pad, gv_pad, d[s], u[s], idx[s],
-                live[s], wf, bf, ctx.rc)
+        if d.device.type == 'cuda':
+            dd, du, dphi, dv = painn_bwd_cuda(
+                phi_pad, v_pad, d.contiguous(), u.contiguous(), idx, live,
+                wf.contiguous(), bf.contiguous(), gs.contiguous(),
+                gv.contiguous(), ctx.rc)
+        else:
+            dd, du, dphi, dv = painn_bwd_plain(
+                phi_pad, v_pad, d, u, idx, live, wf, bf, gs, gv, ctx.rc,
+                ctx.rows_per_chunk)
         return dphi, dv, dd, du, None, None, None, None, None, None
 
 

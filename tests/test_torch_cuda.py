@@ -36,7 +36,9 @@ from nnpops_tpu_torch.neighbors.window import _radial_slots, select_window
 from nnpops_tpu_torch.ops import (batched_nn, cuda_aev, cuda_cfconv,
                                   cuda_cluster, cuda_nn, cuda_pme,
                                   cuda_select, cuda_window, cuda_zpair)
+from nnpops_tpu_torch.ops import painn as painn_ops
 from nnpops_tpu_torch.ops.cfconv import CFConvParams, init_cfconv
+from nnpops_tpu_torch.ops.cuda_cfconv import _pad_row
 from nnpops_tpu_torch.ops.pme import PME
 from nnpops_tpu_torch.utils import make_water_box
 from nnpops_tpu_torch.utils.profiling import recording
@@ -1226,7 +1228,10 @@ def test_painn_force_call_matches_cpu_and_repeats(dev):
 
 def test_painn_force_call_26k(dev):
     """PaiNN's MD force call at 26,010 atoms: finite, every count within
-    its capacity; prints the force call's time and the peak memory."""
+    its capacity, the backward kernel launched once a message; the energy
+    within 1e-6 and the forces within 1e-5 normwise of the same call on the
+    CPU (the plain chunked backward); prints the force call's time and the
+    peak memory."""
     model, params, cl, pos, box = painn_system(dev, 8670)
     sel = model.select(pos, box, cl)
     counts = model.overflow_counts(pos, box, cl, sel)
@@ -1234,17 +1239,147 @@ def test_painn_force_call_26k(dev):
         assert 0 < int(counts[k]) <= cap, k
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     e, f = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
     end.record()
     torch.cuda.synchronize()
+    assert _kernels.LAUNCHES['painn_bwd'] == 3
     assert bool(torch.isfinite(e)) and bool(torch.isfinite(f).all())
     assert float(f.abs().max()) > 0
     print(f'PaiNN 26k force call {start.elapsed_time(end):.1f} ms, peak '
           f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, K '
           f'{cl.capacity}, counts {dict((k, int(v)) for k, v in counts.items())}')
+    model, params, cl, pos, box = painn_system(torch.device('cpu'), 8670)
+    e_cpu, f_cpu = model.energy_and_forces_from_selection(
+        params, pos, box, cl, model.select(pos, box, cl))
+    err = float((f.cpu() - f_cpu).abs().max() / f_cpu.abs().max())
+    print(f'PaiNN 26k against the CPU: energy {float(e)} / {float(e_cpu)}, '
+          f'forces normwise {err:.3g}')
+    np.testing.assert_allclose(float(e), float(e_cpu), rtol=1e-6)
+    assert_normwise(f.cpu(), f_cpu, 1e-5)
+
+
+def test_painn_force_call_takes_bwd_kernel(dev):
+    """A 3-block PaiNN force call on the card launches the fused backward
+    once a message and never runs the plain chunked backward."""
+    model, params, cl, pos, box = painn_system(dev, 300)
+    sel = model.select(pos, box, cl)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    calls = []
+    with recording(painn_ops, '_rows_backward', calls):
+        _, f = model.energy_and_forces_from_selection(params, pos, box, cl,
+                                                      sel)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES['painn_bwd'] == 3 and not calls
+    assert bool(torch.isfinite(f).all()) and float(f.abs().max()) > 0
+
+
+def painn_lanes(dev, waters=300):
+    """PaiNN's lanes on water(``waters``) at its published widths: (config,
+    d, u, idx (int64), mask, live) and the first block's filter (w, b)."""
+    model, params, cl, pos, box = painn_system(dev, waters)
+    sel = model.select(pos, box, cl)
+    deltas, idx, mask = cl.payload_deltas_from_selection(pos, box, sel)
+    d, u = painn_ops.lane_geometry(deltas, mask)
+    live = mask & (d < model.config.cutoff)
+    filt = params.blocks[0].message.filter
+    return model.config, d, u, idx.long(), mask, live, filt.w, filt.b
+
+
+def painn_bwd_inputs(n, f, dev, seed, v_zero=False):
+    """Random (phi_pad, v_pad) [n + 1, 3f], each ending in a zero row (v
+    zero throughout with ``v_zero``, as in the first block), and cotangents
+    gs [n, f], gv [n, 3, f]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    phi, v = rand(n, 3 * f), rand(n, 3 * f)
+    if v_zero:
+        v.zero_()
+    return _pad_row(phi), _pad_row(v), rand(n, f), rand(n, 3, f)
+
+
+def check_painn_bwd(args, rtol=1e-5):
+    """The kernel (one launch) against the plain ``_rows_backward`` over all
+    rows in float64 on the card: dd, du, dphi and dv within ``rtol`` of
+    their largest; two launches bitwise equal. Returns the kernel's."""
+    phi_pad, v_pad, d, u, idx, live, wf, bf, gs, gv, rc = args
+    n, f = gs.shape
+    _kernels.reset_launch_counts()
+    got = painn_ops.painn_bwd_cuda(*args)
+    assert _kernels.LAUNCHES['painn_bwd'] == 1
+    want = painn_ops._rows_backward(
+        slice(0, n), phi_pad.double(), v_pad.double(), _pad_row(gs.double()),
+        _pad_row(gv.reshape(n, 3 * f).double()), d.double(), u.double(), idx,
+        live, wf.double(), bf.double(), rc)
+    for name, a, b in zip(('dd', 'du', 'dphi', 'dv'), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert float(b.abs().max()) > 0, name
+        err = float((a.double() - b).abs().max() / b.abs().max())
+        assert err <= rtol, (name, err)
+    again = painn_ops.painn_bwd_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize('v_zero', [True, False])
+def test_painn_bwd_kernel_matches_plain(dev, v_zero):
+    """The fused backward on water(300) at F 128, K 128, R 20 against the
+    plain chunked backward's arithmetic, with v = 0 (block 1) and v random:
+    within 1e-5 normwise, two launches bitwise equal."""
+    config, d, u, idx, mask, live, wf, bf = painn_lanes(dev)
+    n, f = d.shape[0], config.width
+    assert (f, d.shape[1], wf.shape[0]) == (128, 128, 20)
+    phi_pad, v_pad, gs, gv = painn_bwd_inputs(n, f, dev, 3, v_zero)
+    check_painn_bwd((phi_pad, v_pad, d, u, idx, live, wf, bf, gs, gv,
+                     float(config.cutoff)))
+
+
+def test_painn_bwd_kernel_edge_lanes(dev):
+    """Exact zeros in dd and du on padded lanes, on skin lanes (rc <= d <
+    rc + skin) and on a live lane whose neighbor is the padding row, and
+    zero dphi and dv on rows with no live lane; the rest as the plain."""
+    config, d, u, idx, mask, live, wf, bf = painn_lanes(dev)
+    n, f = d.shape[0], config.width
+    rc = float(config.cutoff)
+    skin = mask & ~live
+    assert bool((~mask).any()) and bool(skin.any())
+    live = live.clone()
+    live[[0, 7, n - 1]] = False              # rows with no live lane
+    idx = idx.clone()
+    lane = int(torch.nonzero(live[5])[0])
+    idx[5, lane] = n                         # a live lane on the padding row
+    phi_pad, v_pad, gs, gv = painn_bwd_inputs(n, f, dev, 5)
+    dd, du, dphi, dv = check_painn_bwd((phi_pad, v_pad, d, u, idx, live, wf,
+                                        bf, gs, gv, rc))
+    zero = ~live
+    zero[5, lane] = True
+    assert bool((dd[zero] == 0).all()) and bool((du[zero] == 0).all())
+    for row in (0, 7, n - 1):
+        assert bool((dphi[row] == 0).all()) and bool((dv[row] == 0).all())
+
+
+@pytest.mark.parametrize('k', [100, 37])
+def test_painn_bwd_kernel_second_width(dev, k):
+    """At F 64 (two warps a block) and a K that is no multiple of the
+    kernel's 32-lane tiles: water(300)'s first ``k`` lanes, random phi, v,
+    filter and cotangents, against the plain."""
+    config, d, u, idx, mask, live, _, _ = painn_lanes(dev)
+    n, f, r = d.shape[0], 64, config.num_radial
+    gen = torch.Generator(device=dev).manual_seed(6)
+    wf = torch.randn(r, 3 * f, generator=gen, device=dev) / 4
+    bf = torch.randn(3 * f, generator=gen, device=dev) / 10
+    lanes = [t[:, :k].contiguous() for t in (d, u, idx, live)]
+    assert int(lanes[3].sum(1).max()) > 32
+    phi_pad, v_pad, gs, gv = painn_bwd_inputs(n, f, dev, 8)
+    check_painn_bwd((phi_pad, v_pad, *lanes, wf, bf, gs, gv,
+                     float(config.cutoff)))
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,7 @@ def test_import_builds_nothing():
                                       'fused_nn_fwdgrad_hidden',
                                       'fused_nn_fwdgrad_dx',
                                       'left_pack', 'left_pack_lanes',
+                                      'painn_bwd',
                                       'pair_radial_fwd', 'pair_radial_bwd',
                                       'pme_window_fwd', 'pme_window_bwd',
                                       'window_mask', 'window_radial_fwd',

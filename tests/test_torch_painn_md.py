@@ -5,7 +5,9 @@ the CPU, at width 16, 8 radial functions, 2 blocks and a 5 A cutoff (skin
 wide): against the benchmark's plain reference
 (``mdbench/reference/painn_cell_list.py``) on its seeded parameters; the
 message's hand-written adjoint against plain autograd through the same
-forward, in float64; the deltas payload's mirror-routed adjoint against
+forward, in float64, and on CPU tensors taken by the plain chunks, never
+the card's kernel (whose wrapper refuses what it is not built for); the
+deltas payload's mirror-routed adjoint against
 ``payload_from_selection``'s ``index_add``; invariance under a translation
 and the cubic box's symmetries; a lane of the Verlet skin contributing
 exactly nothing; the parameters following the seed; two MD blocks."""
@@ -15,10 +17,12 @@ import torch
 
 from mdbench import harness, inputs, painn_params
 from mdbench.models import painn_cell_list as kind
+from nnpops_tpu_torch import _kernels
 from nnpops_tpu_torch.config import PaiNNConfig
 from nnpops_tpu_torch.md import integrators
 from nnpops_tpu_torch.models.painn import PaiNNModel
 from nnpops_tpu_torch.ops import painn as painn_ops
+from nnpops_tpu_torch.utils.profiling import recording
 
 SMALL = dict(width=16, radial=8, interactions=2, cutoff=5.0, aev_length=16,
              layer_dims=[[8]])
@@ -139,6 +143,49 @@ def test_message_refuses_weight_gradients(cell):
         painn_ops.painn_message(torch.zeros(n, 3 * f, dtype=torch.float64),
                                 torch.zeros(n, 3, f, dtype=torch.float64), d,
                                 u, idx, mask, wf, torch.zeros(3 * f), config)
+
+
+def test_message_backward_on_cpu_takes_plain_chunks(cell):
+    """On CPU tensors the backward runs the plain ``_rows_backward`` once a
+    chunk (10 chunks of at most 97 of the 900 rows) and launches no
+    kernel."""
+    d, u, idx, mask = lanes(cell)
+    config = cell[2].config
+    n, f = d.shape[0], config.width
+    gen = torch.Generator().manual_seed(4)
+    leaves = [torch.randn(*shape, generator=gen, dtype=torch.float64,
+                          requires_grad=True)
+              for shape in ((n, 3 * f), (n, 3, f))]
+    wf = torch.randn(config.num_radial, 3 * f, generator=gen,
+                     dtype=torch.float64)
+    ms, mv = painn_ops.painn_message(*leaves, d, u, idx, mask, wf,
+                                     torch.zeros(3 * f, dtype=torch.float64),
+                                     config, rows_per_chunk=97)
+    _kernels.reset_launch_counts()
+    calls = []
+    with recording(painn_ops, '_rows_backward', calls):
+        grads = torch.autograd.grad(ms.sum() + mv.sum(), leaves)
+    assert len(calls) == 10 and _kernels.LAUNCHES['painn_bwd'] == 0
+    assert all(bool(g.abs().max() > 0) for g in grads)
+
+
+@pytest.mark.parametrize('width, dtype', [(16, torch.float32),
+                                          (32, torch.float64)])
+def test_bwd_kernel_refuses_inputs(width, dtype):
+    """The kernel's wrapper raises before any launch on a width the kernel
+    is not built for and on inputs that are not float32."""
+    n, k, r = 5, 4, 20
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros(*shape, dtype=dtype)
+
+    with pytest.raises(ValueError, match='width|expected'):
+        painn_ops.painn_bwd_cuda(
+            zeros(n + 1, 3 * width), zeros(n + 1, 3 * width), zeros(n, k),
+            zeros(n, k, 3), zeros(n, k, dtype=torch.int64),
+            zeros(n, k, dtype=torch.bool), zeros(r, 3 * width),
+            zeros(3 * width), zeros(n, width), zeros(n, 3, width), 5.0)
+    assert _kernels.LAUNCHES['painn_bwd'] == 0
 
 
 def test_deltas_payload_adjoint(cell):
