@@ -170,6 +170,44 @@ class PaiNNConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MACEConfig:
+    """MACE's widths (Batatia et al., NeurIPS 2022; ACEsuit/mace ``MACE``),
+    by default MACE-OFF23 medium's (Kovacs et al., arXiv:2312.15211):
+    ``channels`` F of every irrep, harmonics to ``l_max`` (3: the port's
+    tables), hidden node features to ``hidden_l`` (1: 128x0e + 128x1o),
+    the symmetric contraction's ``correlation`` order (3: body order 4),
+    ``num_radial`` Bessel functions under the polynomial cutoff of power
+    ``cutoff_p`` at ``cutoff`` rc, the radial networks' hidden widths
+    ``radial_mlp``, the last readout's hidden width ``readout_hidden``, and
+    the messages' divisor ``avg_num_neighbors``. The port has no JAX twin
+    of it."""
+    channels: int = 128
+    l_max: int = 3
+    hidden_l: int = 1
+    correlation: int = 3
+    num_radial: int = 8
+    cutoff_p: int = 5
+    cutoff: float = 5.0
+    radial_mlp: Tuple[int, ...] = (64, 64, 64)
+    readout_hidden: int = 16
+    avg_num_neighbors: float = 1.0
+
+    def __post_init__(self):
+        if self.channels < 1 or self.num_radial < 1 or self.readout_hidden < 1:
+            raise ValueError('channels, num_radial and readout_hidden must '
+                             'be positive')
+        if self.l_max != 3 or self.correlation != 3 or \
+                self.hidden_l not in (0, 1):
+            raise ValueError('the port builds l_max 3, correlation 3 and '
+                             'hidden_l 0 or 1')
+        if self.cutoff <= 0 or self.cutoff_p < 1 or \
+                self.avg_num_neighbors <= 0:
+            raise ValueError('cutoff, cutoff_p and avg_num_neighbors must be '
+                             'positive')
+        object.__setattr__(self, 'radial_mlp', tuple(self.radial_mlp))
+
+
+@dataclasses.dataclass(frozen=True)
 class PMEConfig:
     """Particle Mesh Ewald configuration (pme/pme.py:52-92)."""
     gridx: int

@@ -48,9 +48,9 @@ import numpy as np
 import torch
 
 from ..config import PaiNNConfig
-from ..neighbors.cell_list import CellList, SlotSelection
+from ..neighbors.cell_list import CellList, SlotSelection, lane_geometry
 from ..ops.batched_nn import resolve_device
-from ..ops.painn import lane_geometry, painn_message
+from ..ops.painn import painn_message
 from ..utils.profiling import span
 from .md_path import CellListPath, species_of, with_forces
 from .schnet import DenseParams

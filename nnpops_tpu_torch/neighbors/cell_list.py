@@ -557,6 +557,16 @@ class CellList:
             torch.tensor(n, dtype=torch.int32, device=positions.device))
 
 
+def lane_geometry(deltas: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor]:
+    """(d [N, K], u [N, K, 3]) of the deltas payload
+    (``CellList.payload_deltas_from_selection``) by plain autograd: lengths
+    and unit vectors, exact zeros (and zero gradients) on masked lanes."""
+    d2 = torch.where(mask, torch.sum(deltas * deltas, -1), 1.0)
+    d = torch.sqrt(d2)
+    u = deltas / d[..., None]
+    return torch.where(mask, d, 0.0), torch.where(mask[..., None], u, 0.0)
+
+
 @functools.lru_cache(maxsize=16)
 def _stencil_tables(cell_list: CellList, device: torch.device
                     ) -> Tuple[Tensor, Tensor]:

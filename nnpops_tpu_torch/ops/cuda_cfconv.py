@@ -110,7 +110,7 @@ def _gather_rows(table: Tensor, i: Tensor) -> Tensor:
 
 
 def _pad_row(x: Tensor) -> Tensor:
-    return torch.cat([x, x.new_zeros(1, x.shape[1])])
+    return torch.cat([x, x.new_zeros(1, *x.shape[1:])])
 
 
 def _row_chunks(n: int, chunk_size: Optional[int]):

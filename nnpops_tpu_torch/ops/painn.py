@@ -22,7 +22,7 @@ cutoff.
   indices and the live-lane mask); the lane tensors are computed again in
   the backward.
 * **Backward**: each row on its own. Its lanes give the cotangents of
-  their d and u (which ``lane_geometry`` and
+  their d and u (which ``neighbors.cell_list.lane_geometry`` and
   ``CellList.payload_deltas_from_selection`` take to the positions), and
   its own atom's d phi and d v come as gathers of the cotangents g_s, g_v
   of the atoms in its row: the list is symmetric, W_ji = W_ij and u_ji =
@@ -66,16 +66,6 @@ def chunk_rows(k: int, width: int, itemsize: int = 4) -> int:
     3F] lane temporaries stay at or under ``CHUNK_BYTES`` (at least one).
     5,461 at K 128, F 128 in float32."""
     return max(1, CHUNK_BYTES // (k * 3 * width * itemsize))
-
-
-def lane_geometry(deltas: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor]:
-    """(d [N, K], u [N, K, 3]) of the deltas payload by plain autograd:
-    lengths and unit vectors, exact zeros (and zero gradients) on masked
-    lanes."""
-    d2 = torch.where(mask, torch.sum(deltas * deltas, -1), 1.0)
-    d = torch.sqrt(d2)
-    u = deltas / d[..., None]
-    return torch.where(mask, d, 0.0), torch.where(mask[..., None], u, 0.0)
 
 
 def _freq(r: int, rc: float, dtype, device) -> Tensor:
@@ -255,8 +245,9 @@ def painn_message(phi: Tensor, v: Tensor, d: Tensor, u: Tensor,
     """One PaiNN message: (m_s [N, F], m_v [N, 3, F]) from the per-atom
     ``phi`` [N, 3F] and ``v`` [N, 3, F] over the lanes (``d``, ``u``,
     ``indices`` padded with N, ``mask``) of a symmetric full neighbor list
-    (``CellList.payload_deltas_from_selection``, then ``lane_geometry``),
-    with the filter ``filter_w`` [R, 3F], ``filter_b`` [3F].
+    (``CellList.payload_deltas_from_selection``, then
+    ``cell_list.lane_geometry``), with the filter ``filter_w`` [R, 3F],
+    ``filter_b`` [3F].
     ``rows_per_chunk`` defaults to ``chunk_rows``. ``plain``: autograd
     through the same forward, unchunked (the adjoint tests' oracle). The
     lanes go into ``COUNTERS['painn_lanes']``."""

@@ -15,8 +15,8 @@
   the ``torch.profiler`` trace, on the profiler's clock beside the device
   activity; with no profiler running it does nothing.
 * :data:`COUNTERS`: the port's host-to-device uploads (count and bytes),
-  builds of a model's device tables, CFConv and PaiNN lanes, always
-  counted;
+  builds of a model's device tables, CFConv, PaiNN and MACE lanes, MACE
+  contractions, always counted;
   :func:`reset_counters` zeroes them.
 * :func:`recording`: a spy on a module's function that keeps every call's
   arguments, so a check can replay a kernel on the inputs a path gives it.
@@ -35,10 +35,13 @@ import torch
 # uploads made through ``ops.aev_blocked.upload``, builds of a model's
 # device tables (``ANIModel._device_arrays``, once per model and device),
 # the lanes (rows x K, read from host shapes) of every convolution
-# through ``ops.cfconv.cfconv_masked`` and of every PaiNN message through
-# ``ops.painn.painn_message``.
+# through ``ops.cfconv.cfconv_masked``, of every PaiNN message through
+# ``ops.painn.painn_message`` and of every MACE message through
+# ``ops.mace.mace_message``, and the atom-channel pairs (N x F) of every
+# MACE symmetric contraction (``ops.mace.symmetric_contraction``).
 COUNTERS = {'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
-            'cfconv_lanes': 0, 'painn_lanes': 0}
+            'cfconv_lanes': 0, 'painn_lanes': 0, 'mace_lanes': 0,
+            'mace_contractions': 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

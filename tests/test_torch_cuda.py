@@ -13,13 +13,15 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from nnpops_tpu_torch import ANI2X_LAYER_DIMS, ANIBasis, _kernels
-from nnpops_tpu_torch.config import CFConvConfig, PaiNNConfig
+from nnpops_tpu_torch.config import CFConvConfig, MACEConfig, PaiNNConfig
 from nnpops_tpu_torch.models import ani as ani_module
 from nnpops_tpu_torch.models.ani import (ANIModel, init_ani_params,
                                          plain_energy_and_forces)
 from nnpops_tpu_torch.models.combined import ANIWithPME
+from nnpops_tpu_torch.models.mace import MACEModel
 from nnpops_tpu_torch.models.painn import PaiNNModel
 from nnpops_tpu_torch.models.schnet import CFConvStack, SchNetModel
 from nnpops_tpu_torch.models.combined import \
@@ -28,7 +30,7 @@ from nnpops_tpu_torch.neighbors.blocked import (BlockedLayout,
                                                 payload_from_blocked,
                                                 plan_blocked_layout,
                                                 select_blocked)
-from nnpops_tpu_torch.neighbors.cell_list import CellList
+from nnpops_tpu_torch.neighbors.cell_list import CellList, lane_geometry
 from nnpops_tpu_torch.neighbors.window import radial_window_inputs
 from nnpops_tpu_torch.neighbors import clusters as clusters_mod
 from nnpops_tpu_torch.neighbors import window as window_mod
@@ -1284,7 +1286,7 @@ def painn_lanes(dev, waters=300):
     model, params, cl, pos, box = painn_system(dev, waters)
     sel = model.select(pos, box, cl)
     deltas, idx, mask = cl.payload_deltas_from_selection(pos, box, sel)
-    d, u = painn_ops.lane_geometry(deltas, mask)
+    d, u = lane_geometry(deltas, mask)
     live = mask & (d < model.config.cutoff)
     filt = params.blocks[0].message.filter
     return model.config, d, u, idx.long(), mask, live, filt.w, filt.b
@@ -1380,6 +1382,99 @@ def test_painn_bwd_kernel_second_width(dev, k):
     phi_pad, v_pad, gs, gv = painn_bwd_inputs(n, f, dev, 8)
     check_painn_bwd((phi_pad, v_pad, *lanes, wf, bf, gs, gv,
                      float(config.cutoff)))
+
+
+def mace_system(dev, waters, seed=0):
+    """MACE at MACE-OFF23 medium's widths (``MACEConfig``'s defaults: 128
+    channels, l <= 3, hidden 0e + 1o, correlation 3, 8 Bessel functions,
+    5 A, 2 layers; the frame's mean neighbor count 55.3975) on
+    water(``waters``): (model, params, cell list, positions, box) on
+    ``dev``."""
+    water = make_water_box(waters, seed=seed)
+    model = MACEModel.from_atomic_numbers(
+        water.atomic_numbers, MACEConfig(avg_num_neighbors=55.3975),
+        elements=(1, 8))
+    params = model.init(torch.Generator().manual_seed(5), device=dev)
+    cl = model.create_cell_list(water.box, skin=0.25)
+    return (model, params, cl, torch.tensor(water.positions, device=dev),
+            torch.tensor(water.box, device=dev))
+
+
+class _Scatters(TorchDispatchMode):
+    """Records the accumulating scatters dispatched (autograd's too):
+    ``index_add``, ``scatter*`` and ``index_put`` with ``accumulate``."""
+
+    def __init__(self):
+        super().__init__()
+        self.found = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        if 'index_add' in name or 'scatter' in name or (
+                name.startswith('index_put') and (kwargs.get('accumulate') or (
+                    len(args) > 3 and args[3]))):
+            self.found.append(name)
+        return func(*args, **kwargs)
+
+
+def test_mace_force_call_matches_cpu_and_repeats(dev):
+    """MACE's MD force call on water(300): the card's energy within 1e-6
+    and forces within 1e-5 normwise of the same call on the CPU, and two
+    calls on the card bitwise equal (the message's, the contraction's and
+    the deltas payload's adjoints are scatter-free: no atomics)."""
+    cpu = torch.device('cpu')
+    out = {}
+    for d in (dev, cpu):
+        model, params, cl, pos, box = mace_system(d, 300)
+        sel = model.select(pos, box, cl)
+        out[d.type] = [model.energy_and_forces_from_selection(
+            params, pos, box, cl, sel) for _ in range(2 if d == dev else 1)]
+    (e1, f1), (e2, f2) = out['cuda']
+    (e_cpu, f_cpu), = out['cpu']
+    assert float(e1) == float(e2) and torch.equal(f1, f2)
+    np.testing.assert_allclose(float(e1), float(e_cpu), rtol=1e-6)
+    assert float(f_cpu.abs().max()) > 0
+    assert_normwise(f1.cpu(), f_cpu, 1e-5)
+
+
+def test_mace_force_call_26k(dev):
+    """MACE's MD force call at 26,010 atoms: every count within its
+    capacity, finite, no accumulating scatter dispatched (forward and
+    backward); the energy within 1e-5 and the forces within 1e-5 normwise
+    of the same call on the CPU; prints the force call's time and the peak
+    memory."""
+    model, params, cl, pos, box = mace_system(dev, 8670)
+    sel = model.select(pos, box, cl)
+    counts = model.overflow_counts(pos, box, cl, sel)
+    for k, cap in model.capacities(cl).items():
+        assert 0 < int(counts[k]) <= cap, k
+    model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    e, f = model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    end.record()
+    torch.cuda.synchronize()
+    print(f'MACE 26k force call {start.elapsed_time(end):.1f} ms, peak '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, lanes '
+          f'{model.lanes(sel, cl.capacity)} of {cl.capacity}, counts '
+          f'{dict((k, int(v)) for k, v in counts.items())}')
+    with _Scatters() as mode:
+        model.energy_and_forces_from_selection(params, pos, box, cl, sel)
+    assert mode.found == []
+    assert bool(torch.isfinite(e)) and bool(torch.isfinite(f).all())
+    assert float(f.abs().max()) > 0
+    model, params, cl, pos, box = mace_system(torch.device('cpu'), 8670)
+    e_cpu, f_cpu = model.energy_and_forces_from_selection(
+        params, pos, box, cl, model.select(pos, box, cl))
+    err = float((f.cpu() - f_cpu).abs().max() / f_cpu.abs().max())
+    print(f'MACE 26k against the CPU: energy {float(e)} / {float(e_cpu)}, '
+          f'forces normwise {err:.3g}')
+    np.testing.assert_allclose(float(e), float(e_cpu), rtol=1e-5)
+    assert_normwise(f.cpu(), f_cpu, 1e-5)
 
 
 # ---------------------------------------------------------------------------

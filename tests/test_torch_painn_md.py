@@ -21,6 +21,7 @@ from nnpops_tpu_torch import _kernels
 from nnpops_tpu_torch.config import PaiNNConfig
 from nnpops_tpu_torch.md import integrators
 from nnpops_tpu_torch.models.painn import PaiNNModel
+from nnpops_tpu_torch.neighbors.cell_list import lane_geometry
 from nnpops_tpu_torch.ops import painn as painn_ops
 from nnpops_tpu_torch.utils.profiling import recording
 
@@ -94,7 +95,7 @@ def lanes(cell):
     sel = model.select(pos, setup.box, cells)
     deltas, idx, mask = cells.payload_deltas_from_selection(pos, setup.box,
                                                             sel)
-    d, u = painn_ops.lane_geometry(deltas, mask)
+    d, u = lane_geometry(deltas, mask)
     return d.double(), u.double(), idx, mask
 
 

@@ -4,17 +4,20 @@ a span is one shared no-op and never makes a ``record_function``; under
 ``torch.profiler`` a refresh block's trace holds the span tree, each
 sub-span inside its parent; and a selection's uploads and table builds
 are counted, a cold one's (every cache empty) and a warm one's (none).
-SchNet's and PaiNN's cell-list MD paths, water(300): their span trees,
-their CFConv and PaiNN lanes and no upload in a warm block."""
+SchNet's, PaiNN's and MACE's cell-list MD paths, water(300): their span
+trees, their CFConv, PaiNN and MACE lanes, MACE's contractions and no
+upload in a warm block."""
 import dataclasses
 import json
 
 import pytest
 import torch
 
-from nnpops_tpu_torch.config import ANIBasis, CFConvConfig, PaiNNConfig
+from nnpops_tpu_torch.config import (ANIBasis, CFConvConfig, MACEConfig,
+                                     PaiNNConfig)
 from nnpops_tpu_torch.md import MDState, langevin_baoab, run_md_sticky_counts
 from nnpops_tpu_torch.models.ani import ANIModel, init_ani_params
+from nnpops_tpu_torch.models.mace import MACEModel
 from nnpops_tpu_torch.models.painn import PaiNNModel
 from nnpops_tpu_torch.models.schnet import SchNetModel
 from nnpops_tpu_torch.neighbors import window
@@ -168,7 +171,8 @@ def test_selection_uploads_counted(system, monkeypatch):
     assert misses == 9
     assert cold == {'uploads': misses + 2 + 4 + 1, 'upload_bytes': 517380,
                     'selection_table_builds': 1, 'cfconv_lanes': 0,
-                    'painn_lanes': 0}
+                    'painn_lanes': 0, 'mace_lanes': 0,
+                    'mace_contractions': 0}
 
     lengths = []
 
@@ -181,7 +185,8 @@ def test_selection_uploads_counted(system, monkeypatch):
     model.select(pos, box, cl)
     assert profiling.COUNTERS == {'uploads': 0, 'upload_bytes': 0,
                                   'selection_table_builds': 0,
-                                  'cfconv_lanes': 0, 'painn_lanes': 0}
+                                  'cfconv_lanes': 0, 'painn_lanes': 0,
+                                  'mace_lanes': 0, 'mace_contractions': 0}
     assert lengths and max(lengths) <= model.basis.num_species + 1
     info = device_constant.cache_info()
     assert (info.misses, info.hits) == (misses, misses)
@@ -231,7 +236,7 @@ def test_schnet_span_tree_and_lanes(schnet_system, tmp_path):
     assert profiling.COUNTERS == {
         'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
         'cfconv_lanes': 2 * 6 * pos.shape[0] * cl.capacity,
-        'painn_lanes': 0}
+        'painn_lanes': 0, 'mace_lanes': 0, 'mace_contractions': 0}
     with profiling.trace(str(tmp_path)):
         _cell_list_block(schnet_system)
     ranges = _ranges(tmp_path / 'trace.json')
@@ -278,7 +283,8 @@ def test_painn_span_tree_and_lanes(painn_system, tmp_path):
     _cell_list_block(painn_system)
     assert profiling.COUNTERS == {
         'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
-        'cfconv_lanes': 0, 'painn_lanes': 2 * 2 * pos.shape[0] * cl.capacity}
+        'cfconv_lanes': 0, 'painn_lanes': 2 * 2 * pos.shape[0] * cl.capacity,
+        'mace_lanes': 0, 'mace_contractions': 0}
     with profiling.trace(str(tmp_path)):
         _cell_list_block(painn_system)
     ranges = _ranges(tmp_path / 'trace.json')
@@ -294,6 +300,60 @@ def test_painn_span_tree_and_lanes(painn_system, tmp_path):
         phases = ([ranges['force.distances'][k]]
                   + [ranges[name][2 * k + b] for b in range(2)
                      for name in ('force.message', 'force.update')]
+                  + [ranges[name][k] for name in ('force.readout',
+                                                  'force.backward')])
+        assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
+
+
+MACE_FORCE = ('force.distances', 'force.interaction', 'force.product',
+              'force.readout', 'force.backward')
+
+
+@pytest.fixture(scope='module')
+def mace_system():
+    water = make_water_box(300, seed=0)
+    model = MACEModel.from_atomic_numbers(
+        water.atomic_numbers, MACEConfig(channels=8, avg_num_neighbors=10.0),
+        [1, 8])
+    cl = model.create_cell_list(water.box, skin=SKIN)
+    params = model.init(torch.Generator().manual_seed(0), device='cpu')
+    return (model, cl, params, torch.tensor(water.positions),
+            torch.tensor(water.box))
+
+
+def test_mace_span_tree_and_counters(mace_system, tmp_path):
+    """A warm MACE refresh block (a selection, two force calls, the counts)
+    uploads nothing, counts N x K lanes for each of the two messages of
+    each force call (K the selection's lanes, its largest count rounded up
+    to 8) and N x F atom-channel pairs for each of the two contractions;
+    profiled, the force call's phases nest in it in order, an interaction
+    and a product a layer."""
+    model, cl, _, pos, box = mace_system
+    _cell_list_block(mace_system)
+    profiling.reset_counters()
+    _cell_list_block(mace_system)
+    k = model.lanes(model.select(pos, box, cl), cl.capacity)
+    assert k < cl.capacity
+    assert profiling.COUNTERS == {
+        'uploads': 0, 'upload_bytes': 0, 'selection_table_builds': 0,
+        'cfconv_lanes': 0, 'painn_lanes': 0,
+        'mace_lanes': 2 * 2 * pos.shape[0] * k,
+        'mace_contractions': 2 * 2 * pos.shape[0] * 8}
+    with profiling.trace(str(tmp_path)):
+        _cell_list_block(mace_system)
+    ranges = _ranges(tmp_path / 'trace.json')
+    assert {name: len(r) for name, r in ranges.items()} == {
+        'md.block': 1, 'select': 1, 'force': 2, 'force.distances': 2,
+        'force.interaction': 4, 'force.product': 4, 'force.readout': 2,
+        'force.backward': 2, 'counts': 1}
+    for name in ('select', 'force'):
+        assert all(_inside(r, ranges['md.block']) for r in ranges[name])
+    for name in MACE_FORCE:
+        assert all(_inside(r, ranges['force']) for r in ranges[name]), name
+    for k in range(2):
+        phases = ([ranges['force.distances'][k]]
+                  + [ranges[name][2 * k + b] for b in range(2)
+                     for name in ('force.interaction', 'force.product')]
                   + [ranges[name][k] for name in ('force.readout',
                                                   'force.backward')])
         assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
